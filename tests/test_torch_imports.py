@@ -1,0 +1,46 @@
+"""The port must run on a host that has torch and none of JAX: no module of
+wseg_tpu_torch, and not chip_smoke.py, may import jax, flax, optax or the JAX
+package wseg_tpu."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "wseg_tpu")
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import wseg_tpu_torch
+mods = ["wseg_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(wseg_tpu_torch.__path__, "wseg_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+assert not any(k == b or k.startswith(b + ".") for k in sys.modules for b in BLOCKED)
+print(len(mods))
+"""
+
+
+def test_port_imports_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20  # every module was walked
+
+
+def test_blocker_blocks_the_jax_package():
+    probe = _PROBE.split("import wseg_tpu_torch")[0] + "import wseg_tpu.utils.registry\n"
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "blocked import of wseg_tpu" in out.stderr

@@ -1,0 +1,111 @@
+"""PASCAL VOC 2012 lists, image-level labels and the multi-scale + flip
+inference dataset (counterpart of those parts of wseg_tpu/data/voc12.py).
+
+Labels come from an explicit cls_labels.npy, a cached one next to the VOC
+root (or the repo's voc12/), or the XML annotations, then cached. PIL is
+imported where images are opened.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from wseg_tpu_torch.data import transforms as T
+
+IMG_FOLDER_NAME = "JPEGImages"
+ANNOT_FOLDER_NAME = "Annotations"
+
+CAT_LIST = [
+    "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
+    "chair", "cow", "diningtable", "dog", "horse", "motorbike", "person",
+    "pottedplant", "sheep", "sofa", "train", "tvmonitor",
+]
+CAT_NAME_TO_NUM = {c: i for i, c in enumerate(CAT_LIST)}
+CATEGORIES_WITH_BG = ["background"] + CAT_LIST
+
+
+def get_img_path(img_name: str, voc12_root: str) -> str:
+    return os.path.join(voc12_root, IMG_FOLDER_NAME, img_name + ".jpg")
+
+
+def load_img_name_list(dataset_path: str) -> list[str]:
+    """Parse a list file: the reference's '/JPEGImages/<id>.jpg ...' lines
+    (image id = chars [-15:-4] of the jpg path) or bare names."""
+    with open(dataset_path) as f:
+        lines = f.read().splitlines()
+    names = []
+    for line in lines:
+        if not line.strip():
+            continue
+        first = line.split(" ")[0]
+        names.append(first[-15:-4] if first.endswith(".jpg") else first.strip())
+    return names
+
+
+def load_image_label_from_xml(img_name: str, voc12_root: str) -> np.ndarray:
+    from xml.dom import minidom
+
+    path = os.path.join(voc12_root, ANNOT_FOLDER_NAME, img_name + ".xml")
+    lab = np.zeros(20, np.float32)
+    for el in minidom.parse(path).getElementsByTagName("name"):
+        cat = el.firstChild.data
+        if cat in CAT_NAME_TO_NUM:
+            lab[CAT_NAME_TO_NUM[cat]] = 1.0
+    return lab
+
+
+def load_image_label_list(
+    img_name_list: list[str], voc12_root: str, cls_labels_path: str | None = None
+) -> list[np.ndarray]:
+    """Multi-hot labels for each image, from (in order of preference) an
+    explicit cls_labels.npy, a cached one, or the XML annotations (then
+    cached next to the VOC root)."""
+    candidates = [cls_labels_path] if cls_labels_path else []
+    candidates += [
+        os.path.join(voc12_root, "cls_labels.npy"),
+        os.path.join("voc12", "cls_labels.npy"),
+    ]
+    for cand in candidates:
+        if cand and os.path.exists(cand):
+            d = np.load(cand, allow_pickle=True).item()
+            if all(n in d for n in img_name_list):
+                return [np.asarray(d[n], np.float32) for n in img_name_list]
+    labels = {n: load_image_label_from_xml(n, voc12_root) for n in img_name_list}
+    try:
+        np.save(os.path.join(voc12_root, "cls_labels.npy"), labels)  # cache
+    except OSError:
+        pass
+    return [labels[n] for n in img_name_list]
+
+
+class VOC12ClsDatasetMSF:
+    """Multi-scale + flip views (voc12/data.py:92-121): for each scale,
+    PIL-bicubic resize then [orig, flipped], normalized HWC float32.
+    Items are (name, views, label, (H, W))."""
+
+    def __init__(self, img_name_list_path, voc12_root, scales=(0.5, 1.0, 1.5, 2.0),
+                 unit=1, cls_labels_path=None):
+        self.img_name_list = load_img_name_list(img_name_list_path)
+        self.voc12_root = voc12_root
+        self.label_list = load_image_label_list(
+            self.img_name_list, voc12_root, cls_labels_path
+        )
+        self.scales = scales
+        self.unit = unit
+        self.normalize = T.Normalize()
+
+    def __len__(self):
+        return len(self.img_name_list)
+
+    def load_image(self, idx: int):
+        import PIL.Image
+
+        name = self.img_name_list[idx]
+        return PIL.Image.open(get_img_path(name, self.voc12_root)).convert("RGB")
+
+    def __getitem__(self, idx: int):
+        img = self.load_image(idx)
+        views = [self.normalize(v) for v in T.msf_views(img, self.scales, self.unit)]
+        return self.img_name_list[idx], views, self.label_list[idx], (img.size[1], img.size[0])

@@ -1,0 +1,109 @@
+"""Weights in and out of the port.
+
+* `state_dict_from_jax`: the JAX package's (params, batch_stats) trees as
+  numpy arrays -> a state_dict with the reference's key names, conv kernels
+  transposed HWIO -> OIHW. It inverts the JAX package's
+  `convert_torch_state_dict` (wseg_tpu/utils/checkpoint.py:61-114).
+* `load_weights`: a reference `.pth` state_dict, or a JAX `.ckpt` file (flax
+  msgpack of {'params', 'batch_stats'}), decoded here without flax.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+_BN_LEAVES = {"scale": "weight", "bias": "bias"}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _leaves(tree: Mapping, path: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _module_key(path: tuple) -> str:
+    # the JAX ContrastNet nests its trunk under "backbone"; the reference's
+    # (and the port's) trunk blocks sit at the top level
+    mods = path[1:-1] if path[0] == "backbone" else path[:-1]
+    return ".".join(mods)
+
+
+def state_dict_from_jax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
+    """(params, batch_stats) trees of numpy arrays -> state_dict."""
+    out: dict[str, torch.Tensor] = {}
+    for path, val in _leaves(params):
+        arr = np.array(val, dtype=np.float32)
+        leaf = path[-1]
+        if leaf == "kernel":
+            out[_module_key(path) + ".weight"] = torch.from_numpy(
+                np.ascontiguousarray(arr.transpose(3, 2, 0, 1)))
+        elif leaf in _BN_LEAVES:
+            out[_module_key(path) + "." + _BN_LEAVES[leaf]] = torch.from_numpy(arr)
+        else:
+            raise KeyError(f"unmapped JAX param {'/'.join(path)}")
+    for path, val in _leaves(batch_stats):
+        leaf = path[-1]
+        if leaf not in _STAT_LEAVES:
+            raise KeyError(f"unmapped JAX batch stat {'/'.join(path)}")
+        out[_module_key(path) + "." + _STAT_LEAVES[leaf]] = torch.from_numpy(
+            np.array(val, dtype=np.float32))
+    return out
+
+
+# flax.serialization's msgpack ext types (ndarray = 1, npscalar = 3); an ndarray
+# is packed as msgpack (shape, dtype name, C-order bytes).
+_EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
+
+
+def _ndarray_from_bytes(data: bytes) -> np.ndarray:
+    import msgpack
+
+    shape, dtype_name, buf = msgpack.unpackb(data, raw=True)
+    if dtype_name == b"bfloat16":  # widen to f32 exactly: bf16 is f32's top half
+        u16 = np.frombuffer(buf, np.uint16)
+        arr = (u16.astype(np.uint32) << 16).view(np.float32)
+    else:
+        arr = np.frombuffer(buf, np.dtype(dtype_name.decode()))
+    return arr.reshape(shape)
+
+
+def _ext_hook(code: int, data: bytes):
+    import msgpack
+
+    if code == _EXT_NDARRAY:
+        return _ndarray_from_bytes(data)
+    if code == _EXT_NPSCALAR:
+        return _ndarray_from_bytes(data)[()]
+    return msgpack.ExtType(code, data)
+
+
+def read_flax_msgpack(path: str) -> dict:
+    """Decode a file written by flax.serialization.to_bytes into nested dicts
+    of numpy arrays. Arrays flax splits into chunks (> 1 GiB) are refused."""
+    import msgpack
+
+    with open(path, "rb") as f:
+        tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
+    for p, v in _leaves(tree):
+        if p[-1] == "__msgpack_chunked_array__":
+            raise ValueError(f"{path}: chunked arrays are not supported ({'/'.join(p)})")
+    return tree
+
+
+def load_weights(path: str) -> dict[str, torch.Tensor]:
+    """A state_dict from a reference `.pth` or a JAX `.ckpt`. BatchNorm's
+    `num_batches_tracked` counters are dropped: the port's BN is frozen."""
+    if path.endswith(".pth"):
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        return {k: v for k, v in state.items() if not k.endswith("num_batches_tracked")}
+    if path.endswith(".ckpt"):
+        tree = read_flax_msgpack(path)
+        return state_dict_from_jax(tree["params"], tree.get("batch_stats", {}))
+    raise ValueError(f"unknown weights format (expected .pth or .ckpt): {path}")

@@ -6,19 +6,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
   1. device: a CUDA card of compute capability 9.0; prints nvidia-smi's name
      and power limit;
   2. build: every CUDA kernel of the port, from kernels/csrc, nvcc in parallel;
-  3. kernel vs plain: the PCM kernel against its plain PyTorch version on the
-     card (f32, TF32 off) at the scale-2 pair of a 384x512 image, a hw tail
-     (700), a masked case, and the main path's own shape with bf16 features;
+  3. PCM kernel vs plain: the PCM kernel against its plain PyTorch version on
+     the card (f32, TF32 off) at the scale-2 pair of a 384x512 image, a hw
+     tail (700), a masked case, and the main path's own shape with bf16
+     features;
   4. slice parity: the full-width ContrastNet through make_fused_msf_fn at
      64x96 on the card (kernel, f32, TF32 off) against the same weights on the
      CPU (plain PCM);
-  5. slice at working size: make_fused_msf_fn at 384x512, 4 scales x flip,
-     batch 8, bf16 trunk and f32 fusion, under torch.inference_mode(); then
-     CamInferencer.infer_batch on two images of different sizes (the bucketed,
-     masked path). The PCM launch count and torch.profiler both have to show
-     the kernel on this path;
-  6. a yardstick for the TPU kernel not ported yet: the library call at its
-     shape, with its bound.
+  5. CAM inference at working size: make_fused_msf_fn at 384x512, 4 scales x
+     flip, batch 8, bf16 trunk and f32 fusion, under torch.inference_mode();
+     then CamInferencer.infer_batch on two images of different sizes (the
+     bucketed, masked path). The PCM launch count and torch.profiler both
+     have to show the kernel on this path;
+  6. conv kernel vs plain: the dilated 3x3 conv kernel (K2) against its plain
+     version, f32 (TF32 off) at the JAX tests' shapes, a co-tiling case and a
+     tail case; bf16 at the probe's and b7's shapes, timed at both beside its
+     plain version, its bound and the F.conv2d yardstick;
+  7. the conv probe (cli/conv_probe.py) at its defaults: the launch count and
+     torch.profiler both have to show K2 on this path;
+  8. training parity: one full-width dual-view step (crop 64, low_res 32,
+     batch 2, f32, TF32 off, dropout off, the same intra-view keys) on the
+     card and on the CPU from the same weights;
+  9. training at working size: crop 448, low_res 128, batch 8, in f32 and in
+     bf16: ms/step, images/s, peak memory, and one profiled step;
+ 10. the training CLI on a synthetic VOC root: one epoch with a per-epoch
+     train state, then a --resume'd second epoch.
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit; the last line is {"ok": true, "device": {...}}.
 Weights are random, from a seed; nothing is downloaded.
@@ -27,17 +39,24 @@ Weights are random, from a seed; nothing is downloaded.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from wseg_tpu_torch.infer.cam import CamInferencer, make_fused_msf_fn
-from wseg_tpu_torch.kernels import _build, pcm_cuda
+from wseg_tpu_torch.kernels import _build, conv_cuda, pcm_cuda
 from wseg_tpu_torch.models import build_model
+from wseg_tpu_torch.models.layers import Dropout2d
+from wseg_tpu_torch.ops.conv import conv3x3_dilated_plain
 from wseg_tpu_torch.ops.pcm import pcm_flat
+from wseg_tpu_torch.train.contrast import make_train_step
+from wseg_tpu_torch.train.optim import PolySGD, param_groups
 
 SEED = 0
 RTOL, ATOL = 2e-3, 2e-4          # the kernel's tolerance (tests/test_pcm_pallas.py)
@@ -45,9 +64,21 @@ SLICE_ATOL = 1e-3                # fused CAM, card (kernel) vs CPU (plain)
 H0, W0, BATCH = 384, 512, 8      # bench.py --mode cam working size
 SCALES = (0.5, 1.0, 1.5, 2.0)
 PCM_KERNEL_NAME = "pcm_fused_kernel"
+CONV_KERNEL_NAME = "conv3x3_bf16_kernel"
+CONV_RTOL = 1e-4                 # K2 in f32 (TF32 off), tests/test_conv_pallas.py
+CONV_BF16_RTOL = 1e-2            # K2 in bf16: bf16 output, a relative step of 2^-8;
+CONV_BF16_ATOL_RMS = 1e-2        # atol is this times the RMS of the f32 plain result
+TRAIN_RTOL = 1e-3                # training step, card vs CPU
+# gradient targets of tests/test_gradient_parity.py, and frozen parameters
+TRAIN_TARGETS = ["fc8.weight", "fc_proj.weight", "f9.weight", "f8_3.weight", "f8_4.weight",
+                 "b7.conv_branch2a.weight", "b3.conv_branch2a.weight",
+                 "b4_2.conv_branch2b1.weight"]
+FROZEN = ["conv1a.weight", "b2.conv_branch2a.weight", "b5.bn_branch2a.weight"]
+BUILD_SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 # NVIDIA H100 data sheet, dense: f32 on the CUDA cores (FLOP/s), HBM (B/s)
 PEAKS = {"PCIe": (51e12, 2.0e12), "SXM": (67e12, 3.35e12)}
+BF16_PEAKS = {"PCIe": 756e12, "SXM": 989e12}  # tensor cores, dense
 
 
 def card_line() -> str:
@@ -296,30 +327,259 @@ def phase_working_size(card: str) -> int:
     return launches
 
 
-def phase_pending_kernels(card: str):
-    """Yardstick for the TPU kernel still to port (K2,
-    wseg_tpu/kernels/conv_pallas.py:conv3x3_dilated): one F.conv2d call at its
-    largest main-path shape, b7's dilated 3x3 (d=4, 1024 -> 2048) on the
-    stride-8 maps of the scale-2 views, bf16, channels_last. The port's trunk
-    calls cuDNN through F.conv2d today; this times that call beside its bound."""
+def conv_inputs(gen, shape, co, dtype):
+    x = torch.randn(shape, generator=gen, device="cuda")
+    k = torch.randn((3, 3, shape[3], co), generator=gen, device="cuda") / (9 * shape[3]) ** 0.5
+    return x.to(dtype), k.to(dtype)
+
+
+def phase_conv_vs_plain(card_name: str, card: str) -> dict:
+    """K2 against its plain version on the same inputs: f32 (TF32 off) at
+    the JAX tests' shapes plus a tail case, bf16 at the probe's and b7's
+    shapes against the plain version in f32 on the same bf16 inputs, and
+    K2's time at both beside its plain version, its bound and one F.conv2d
+    call (the yardstick, channels_last; the port never calls it)."""
     import torch.nn.functional as F
 
-    n, h, w, ci, co, d = 2 * BATCH, H0 // 4, W0 // 4, 1024, 2048, 4
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    x = torch.randn(n, ci, h, w, generator=gen, device="cuda").to(torch.bfloat16)
-    x = x.contiguous(memory_format=torch.channels_last)
-    k = (torch.randn(co, ci, 3, 3, generator=gen, device="cuda") * 0.01).to(torch.bfloat16)
-    k = k.contiguous(memory_format=torch.channels_last)
-    ms = cuda_ms(lambda: F.conv2d(x, k, padding=d, dilation=d))
-    flops = 2.0 * n * h * w * 9 * ci * co
-    nbytes = 2.0 * (x.numel() + k.numel() + n * co * h * w)
-    part, _, peak_bw = peaks(torch.cuda.get_device_name(0))
-    bf16_peak = {"PCIe": 756e12, "SXM": 989e12}[part]
-    bound = max(flops / bf16_peak, nbytes / peak_bw) * 1e3
-    print(f"{card} | K2 (not ported) library F.conv2d 3x3 d={d} {ci}->{co} on "
-          f"({n}, {ci}, {h}, {w}) bf16: {ms:.3f} ms, bound {bound:.3f} ms "
-          f"({flops / 1e12:.2f} TFLOP at the bf16 tensor-core peak), "
-          f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    f32_cases = [  # name, x shape, CO, dilation, tile_co
+        ("jax_test_d1", (2, 16, 16, 8), 16, 1, 16),
+        ("jax_test_d2", (2, 16, 16, 8), 16, 2, 16),
+        ("jax_test_d4", (2, 16, 16, 8), 16, 4, 16),
+        ("co_tiling_8", (1, 8, 8, 4), 32, 2, 8),
+        ("co_tiling_32", (1, 8, 8, 4), 32, 2, 32),
+        ("tail_h13_ci37_co150", (2, 13, 19, 37), 150, 3, 64),
+    ]
+    for name, shape, co, d, tco in f32_cases:
+        x, k = conv_inputs(gen, shape, co, torch.float32)
+        before = conv_cuda.launches
+        got = conv_cuda.conv3x3_dilated(x, k, dilation=d, tile_co=tco)
+        torch.cuda.synchronize()
+        want = conv3x3_dilated_plain(x, k, d)
+        err = (got - want).abs()
+        ok = bool((err <= CONV_RTOL + CONV_RTOL * want.abs()).all()) and \
+            conv_cuda.launches == before + 1
+        print(f"[conv] {name} x {shape} -> {co} d={d} tile_co={tco} f32: "
+              f"max_abs_err={err.max().item():.3e} within rtol=atol={CONV_RTOL}: {ok}", flush=True)
+        if not ok:
+            raise SystemExit(f"chip_smoke: conv kernel disagrees with its plain version ({name})")
+
+    part, _, peak_bw = peaks(card_name)
+    row = None
+    for name, shape in [("probe_bf16", (2 * BATCH, H0 // 8, W0 // 8, 1024)),
+                        ("b7_bf16", (2 * BATCH, H0 // 4, W0 // 4, 1024))]:
+        co, d = 2048, 4
+        x, k = conv_inputs(gen, shape, co, torch.bfloat16)
+        got = conv_cuda.conv3x3_dilated(x, k, dilation=d).float()
+        torch.cuda.synchronize()
+        want = conv3x3_dilated_plain(x.float(), k.float(), d)
+        err = (got - want).abs()
+        atol = CONV_BF16_ATOL_RMS * float(want.pow(2).mean().sqrt())
+        ok = bool((err <= atol + CONV_BF16_RTOL * want.abs()).all())
+        max_err = err.max().item()
+        print(f"[conv] {name} x {shape} -> {co} d={d} bf16: max_abs_err={max_err:.3e} "
+              f"within rtol={CONV_BF16_RTOL} atol={atol:.3e}: {ok}", flush=True)
+        del got, want, err
+        if not ok:
+            raise SystemExit(f"chip_smoke: conv kernel disagrees with its plain version ({name})")
+        x_nchw = x.permute(0, 3, 1, 2)  # channels_last memory
+        k_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        ms = cuda_ms(lambda: conv_cuda.conv3x3_dilated(x, k, dilation=d))
+        plain_ms = cuda_ms(lambda: conv3x3_dilated_plain(x.float(), k.float(), d),
+                           iters=2, warmup=1)
+        library_ms = cuda_ms(lambda: F.conv2d(x_nchw, k_oihw, padding=d, dilation=d))
+        n, h, w, ci = shape
+        flops = 2.0 * 9 * n * h * w * ci * co
+        nbytes = 2.0 * (x.numel() + k.numel() + n * h * w * co)
+        t_ops, t_bytes = flops / BF16_PEAKS[part] * 1e3, nbytes / peak_bw * 1e3
+        print(f"{card} | K2 conv3x3_dilated {name} ({n}, {h}, {w}, {ci}) -> {co} d={d}: "
+              f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+              f"F.conv2d {library_ms:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms "
+              f"({flops / 1e12:.2f} TFLOP at the bf16 tensor-core peak; {nbytes / 1e9:.3f} GB)",
+              flush=True)
+        row = {  # the last case, b7's shape, stands for K2 in the kernel table
+            "name": "conv3x3_dilated", "route": "cuda",
+            "source": "wseg_tpu_torch/kernels/csrc/conv3x3.cu",
+            "replaces": "wseg_tpu/kernels/conv_pallas.py:56",
+            "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms,
+        }
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_conv_probe(card: str) -> int:
+    """K2's path: the probe entry point at its defaults."""
+    from wseg_tpu_torch.cli import conv_probe
+
+    conv_cuda.launches = 0
+    totals = profile_kernels(lambda: conv_probe.main([]))
+    launches = conv_cuda.launches
+    k2_ms = sum(v for k, v in totals.items() if CONV_KERNEL_NAME in k)
+    print(f"{card} | conv probe: K2 launches {launches}, torch.profiler {CONV_KERNEL_NAME} "
+          f"{k2_ms:.1f} ms", flush=True)
+    if launches < 1 or k2_ms <= 0:
+        raise SystemExit("chip_smoke: the conv probe did not run the K2 kernel")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def disable_dropout(model):
+    for m in model.modules():
+        if isinstance(m, Dropout2d):
+            m.rate = 0.0
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def phase_train_parity():
+    """One training step on the card and on the CPU, same weights and keys."""
+    n, hi, low = 2, 64, 32
+    rng = np.random.RandomState(SEED + 4)
+    img = torch.from_numpy(rng.randn(n, 3, hi, hi).astype(np.float32) * 0.5)
+    label = torch.zeros(n, 20)
+    label[0, 2] = label[1, 6] = label[1, 11] = 1
+    m = n * (low // 8) ** 2
+    us = tuple(torch.from_numpy(rng.rand(m).astype(np.float32)) for _ in range(2))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model("contrast", device=dev, generator=torch.Generator().manual_seed(SEED))
+        disable_dropout(model)
+        named = dict(model.named_parameters())
+        before = {k: named[k].detach().clone() for k in FROZEN}
+        opt = PolySGD(param_groups(model), 0.01, 5e-4, 100)
+        mets = make_train_step(model, opt, 0.2, low_res=low)(
+            img.to(dev), label.to(dev), us=tuple(u.to(dev) for u in us))
+        for k in FROZEN:
+            if not torch.equal(named[k].detach(), before[k]):
+                raise SystemExit(f"chip_smoke: frozen parameter {k} moved on {dev}")
+        runs[dev] = ({k: float(v) for k, v in mets.items()},
+                     {k: named[k].detach().cpu() for k in TRAIN_TARGETS + FROZEN},
+                     {k: named[k].grad.cpu() for k in TRAIN_TARGETS})
+        del model, opt
+    (m_cpu, p_cpu, g_cpu), (m_gpu, p_gpu, g_gpu) = runs["cpu"], runs["cuda"]
+    loss_err = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu}
+    param_err = {k: rel_err(p_gpu[k], p_cpu[k]) for k in TRAIN_TARGETS}
+    grad_err = {k: rel_err(g_gpu[k], g_cpu[k]) for k in TRAIN_TARGETS}
+    print(f"[train-parity] losses card vs CPU (f32, TF32 off), max rel err "
+          f"{max(loss_err.values()):.3e}: " + ", ".join(f"{k} {m_gpu[k]:.5f}" for k in m_gpu),
+          flush=True)
+    print(f"[train-parity] updated params max rel err {max(param_err.values()):.3e}; "
+          f"gradients max rel err {max(grad_err.values()):.3e} (reported, not gated)")
+    for k in FROZEN:
+        if not torch.equal(p_gpu[k], p_cpu[k]):
+            raise SystemExit(f"chip_smoke: frozen parameter {k} differs card vs CPU")
+    if max(loss_err.values()) > TRAIN_RTOL or max(param_err.values()) > TRAIN_RTOL:
+        raise SystemExit("chip_smoke: the training step on the card disagrees with the CPU")
+    torch.cuda.empty_cache()
+
+
+def phase_train_working_size(card: str):
+    """Full-width training at the CLI's default size: crop 448, low_res 128,
+    batch 8; f32 (1 warm-up + 3 timed steps), then bf16 (1 + 2), then one
+    profiled step of each. Random init, so gradients are clipped (norm 5)."""
+    n, crop, low = 8, 448, 128
+    model = build_model("contrast", generator=torch.Generator().manual_seed(SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    img = torch.randn(n, 3, crop, crop, generator=gen, device="cuda")
+    img = img.contiguous(memory_format=torch.channels_last)
+    label = (torch.rand(n, 20, generator=gen, device="cuda") > 0.85).float()
+    label[:, 14] = 1.0  # every image has a class
+    named = dict(model.named_parameters())
+    before = {k: named[k].detach().clone() for k in TRAIN_TARGETS + FROZEN}
+    opt = PolySGD(param_groups(model), 0.01, 5e-4, 1000)
+
+    for dtype, timed in ((None, 3), (torch.bfloat16, 2)):
+        step = make_train_step(model, opt, 0.2, low_res=low, compute_dtype=dtype, grad_clip=5.0,
+                               generator=torch.Generator(device="cuda").manual_seed(SEED))
+        mets = step(img, label)  # warm-up (cuDNN autotune)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            mets = step(img, label)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / timed
+        peak = torch.cuda.max_memory_allocated()
+        vals = {k: float(v) for k, v in mets.items()}
+        tag = "bf16" if dtype else "f32 (TF32 off)"
+        print(f"{card} | train step crop {crop} low_res {low} batch {n} {tag}: "
+              f"{dt * 1e3:.1f} ms/step, {n / dt:.2f} images/s (mean of {timed} steps after 1 "
+              f"warm-up), peak device memory {peak / 2**30:.2f} GiB; last losses "
+              + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()), flush=True)
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise SystemExit(f"chip_smoke: non-finite training loss ({tag})")
+    for k in TRAIN_TARGETS:
+        if torch.equal(named[k].detach(), before[k]):
+            raise SystemExit(f"chip_smoke: trainable parameter {k} did not change")
+    for k in FROZEN:
+        if not torch.equal(named[k].detach(), before[k]):
+            raise SystemExit(f"chip_smoke: frozen parameter {k} changed")
+
+    for dtype in (None, torch.bfloat16):
+        step = make_train_step(model, opt, 0.2, low_res=low, compute_dtype=dtype, grad_clip=5.0,
+                               generator=torch.Generator(device="cuda").manual_seed(SEED))
+        step(img, label)
+        totals = profile_kernels(lambda: step(img, label))
+        busy = sum(totals.values())
+        print(f"{card} | profiled {'bf16' if dtype else 'f32'} train step: device busy "
+              f"{busy:.1f} ms; top kernels:")
+        for k, v in sorted(totals.items(), key=lambda kv: -kv[1])[:12]:
+            print(f"{card} |   {v:9.2f} ms {100 * v / busy:5.1f}%  {k[:100]}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
+def make_voc(root: Path, n: int = 4):
+    """A VOC-style root of `n` random JPEGs with one-object XML labels."""
+    from PIL import Image
+
+    rng = np.random.RandomState(SEED)
+    (root / "JPEGImages").mkdir(parents=True)
+    (root / "Annotations").mkdir()
+    names = []
+    for i, cat in enumerate(["dog", "cat", "person", "car"][:n]):
+        name = f"2007_{i:06d}"
+        arr = (rng.rand(300 + 20 * i, 400, 3) * 255).astype(np.uint8)
+        Image.fromarray(arr).save(root / "JPEGImages" / f"{name}.jpg")
+        (root / "Annotations" / f"{name}.xml").write_text(
+            f"<annotation><object><name>{cat}</name></object></annotation>")
+        names.append(name)
+    (root.parent / "train.txt").write_text("".join(f"{x}\n" for x in names))
+    return str(root), str(root.parent / "train.txt")
+
+
+def phase_train_cli(card: str):
+    """The training CLI: one epoch with a train state, then a resumed epoch."""
+    from wseg_tpu_torch.cli import contrast_train
+    from wseg_tpu_torch.utils.checkpoint import load_weights
+
+    shutil.rmtree(BUILD_SCRATCH, ignore_errors=True)
+    root, train_list = make_voc(BUILD_SCRATCH / "VOC2012")
+    common = ["--train_list", train_list, "--voc12_root", root, "--crop_size", "448",
+              "--batch_size", "2", "--grad_clip", "5.0", "--num_workers", "2",
+              "--session_name", "smoke", "--tblog_dir", str(BUILD_SCRATCH / "tblog")]
+    cwd = os.getcwd()
+    os.chdir(BUILD_SCRATCH)
+    try:
+        t0 = time.perf_counter()
+        contrast_train.main(common + ["--max_epoches", "1", "--save_every_epoch"])
+        contrast_train.main(common + ["--max_epoches", "2", "--start_epoch", "1", "--resume",
+                                      "result/smoke/contrast_train.pth"])
+        dt = time.perf_counter() - t0
+        sd = load_weights("result/smoke/contrast.pth")
+    finally:
+        os.chdir(cwd)
+    build_model("contrast", device="cpu").load_state_dict(sd, strict=True)
+    if not all(bool(torch.isfinite(v).all()) for v in sd.values()):
+        raise SystemExit("chip_smoke: non-finite weights after the training CLI")
+    print(f"{card} | training CLI: 1 epoch + a resumed epoch (4 images, batch 2, crop 448) "
+          f"in {dt:.1f} s; contrast.pth loads with load_weights ({len(sd)} tensors)", flush=True)
+    shutil.rmtree(BUILD_SCRATCH, ignore_errors=True)
 
 
 def main() -> int:
@@ -327,11 +587,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     name, card = phase_device()
     phase_build()
-    row = phase_kernel_vs_plain(name)
+    pcm_row = phase_kernel_vs_plain(name)
     phase_slice_parity()
-    row["launches"] = phase_working_size(card)
-    phase_pending_kernels(card)
-    print(json.dumps({"kernels": [row]}))
+    pcm_row["launches"] = phase_working_size(card)
+    conv_row = phase_conv_vs_plain(name, card)
+    conv_row["launches"] = phase_conv_probe(card)
+    phase_train_parity()
+    phase_train_working_size(card)
+    phase_train_cli(card)
+    print(json.dumps({"kernels": [pcm_row, conv_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

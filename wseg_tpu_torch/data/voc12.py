@@ -1,5 +1,6 @@
-"""PASCAL VOC 2012 lists, image-level labels and the multi-scale + flip
-inference dataset (counterpart of those parts of wseg_tpu/data/voc12.py).
+"""PASCAL VOC 2012 lists, image-level labels, the classification and stage-1
+training datasets and the multi-scale + flip inference dataset (counterpart
+of those parts of wseg_tpu/data/voc12.py).
 
 Labels come from an explicit cls_labels.npy, a cached one next to the VOC
 root (or the repo's voc12/), or the XML annotations, then cached. PIL is
@@ -78,6 +79,61 @@ def load_image_label_list(
     except OSError:
         pass
     return [labels[n] for n in img_name_list]
+
+
+class VOC12ClsDataset:
+    """Items are (name, PIL RGB image, label (20,))."""
+
+    def __init__(self, img_name_list_path, voc12_root, cls_labels_path=None):
+        self.img_name_list = load_img_name_list(img_name_list_path)
+        self.voc12_root = voc12_root
+        self.label_list = load_image_label_list(self.img_name_list, voc12_root, cls_labels_path)
+
+    def __len__(self):
+        return len(self.img_name_list)
+
+    def load_image(self, idx: int):
+        import PIL.Image
+
+        return PIL.Image.open(get_img_path(self.img_name_list[idx], self.voc12_root)).convert("RGB")
+
+    def __getitem__(self, idx: int):
+        return self.img_name_list[idx], self.load_image(idx), self.label_list[idx]
+
+
+class ContrastTrainDataset(VOC12ClsDataset):
+    """The stage-1 training pipeline (contrast_train.py:64-75):
+    RandomResizeLong(min_long, max_long) -> flip -> ColorJitter -> normalize
+    -> RandomCrop(crop_size). Items are (name, HWC float32 crop, label).
+
+    det_seed: when set, sample idx of epoch e is augmented by its own
+    `random.Random(f"{det_seed}:{e}:{idx}")`, the JAX package's seeding, so
+    a sample is reproducible across processes and thread schedules (the
+    epoch comes from `set_epoch`, which the DataLoader calls). None draws
+    from the global `random` stream, as the reference does."""
+
+    def __init__(self, img_name_list_path, voc12_root, crop_size=448, min_long=448,
+                 max_long=768, cls_labels_path=None, det_seed: int | None = None):
+        super().__init__(img_name_list_path, voc12_root, cls_labels_path)
+        self.resize = T.RandomResizeLong(min_long, max_long)
+        self.flip = T.RandomHorizontalFlip()
+        self.jitter = T.ColorJitter(0.3, 0.3, 0.3, 0.1)
+        self.normalize = T.Normalize()
+        self.crop = T.RandomCrop(crop_size)
+        self.det_seed = det_seed
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self._epoch = epoch
+
+    def __getitem__(self, idx: int):
+        import random
+
+        rng = (random.Random(f"{self.det_seed}:{self._epoch}:{idx}")
+               if self.det_seed is not None else None)
+        img = self.flip(self.resize(self.load_image(idx), rng), rng)
+        img = self.jitter(img, rng)
+        return self.img_name_list[idx], self.crop(self.normalize(img), rng), self.label_list[idx]
 
 
 class VOC12ClsDatasetMSF:

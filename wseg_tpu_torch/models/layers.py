@@ -10,7 +10,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 
@@ -36,16 +35,21 @@ class BatchNorm2d(nn.Module):
 
 class Dropout2d(nn.Module):
     """Channel dropout (torch.nn.Dropout2d, resnet38d.py:64,68); the identity
-    in eval mode."""
+    in eval mode. With `generator` set (the training step sets it), the
+    per-(sample, channel) keep mask is drawn from that generator, so a run is
+    reproducible from its seed; without, from torch's global stream."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.generator: torch.Generator | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        return F.dropout2d(x, self.rate, training=True)
+        u = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=self.generator,
+                       device=x.device)
+        return x * ((u >= self.rate).to(x.dtype) / (1.0 - self.rate))
 
 
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, dilation: int = 1,

@@ -6,10 +6,21 @@
   `convert_torch_state_dict` (wseg_tpu/utils/checkpoint.py:61-114).
 * `load_weights`: a reference `.pth` state_dict, or a JAX `.ckpt` file (flax
   msgpack of {'params', 'batch_stats'}), decoded here without flax.
+* `save_weights` / `save_train_state` / `load_train_state`: the port's own
+  files, written with torch.save: a state_dict with the reference's keys
+  (readable by `load_weights` and by the JAX package's `.pth` import), and a
+  resumable training state (model, optimizer, step, generator).
+
+Writes are atomic: a temp file in the target's directory, fsynced, then
+`os.replace`d over the target, so a kill mid-write never truncates the only
+resume state. Stale `.<name>.tmp.*` siblings that a killed writer left
+behind are removed first.
 """
 
 from __future__ import annotations
 
+import glob
+import os
 from collections.abc import Mapping
 
 import numpy as np
@@ -102,8 +113,58 @@ def load_weights(path: str) -> dict[str, torch.Tensor]:
     `num_batches_tracked` counters are dropped: the port's BN is frozen."""
     if path.endswith(".pth"):
         state = torch.load(path, map_location="cpu", weights_only=True)
+        if {"model", "optimizer", "generator"} <= state.keys():
+            raise ValueError(f"{path} is a training state (save_train_state), not weights: "
+                             "resume from it instead")
         return {k: v for k, v in state.items() if not k.endswith("num_batches_tracked")}
     if path.endswith(".ckpt"):
         tree = read_flax_msgpack(path)
         return state_dict_from_jax(tree["params"], tree.get("batch_stats", {}))
     raise ValueError(f"unknown weights format (expected .pth or .ckpt): {path}")
+
+
+def _atomic_save(obj, path: str):
+    dirname = os.path.dirname(path) or "."
+    os.makedirs(dirname, exist_ok=True)
+    prefix = os.path.join(dirname, f".{os.path.basename(path)}.tmp.")
+    for stale in glob.glob(glob.escape(prefix) + "*"):
+        try:
+            os.remove(stale)
+        except FileNotFoundError:
+            pass
+    tmp = f"{prefix}{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            torch.save(obj, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _cpu_state(module: torch.nn.Module) -> dict[str, torch.Tensor]:
+    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+
+def save_weights(path: str, model: torch.nn.Module):
+    """The model's state_dict (reference key names, CPU tensors) as `.pth`."""
+    _atomic_save(_cpu_state(model), path)
+
+
+def save_train_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                     step: int, generator: torch.Generator):
+    """Everything a resumed run needs to continue the same trajectory."""
+    _atomic_save({"model": _cpu_state(model), "optimizer": optimizer.state_dict(),
+                  "step": int(step), "generator": generator.get_state()}, path)
+
+
+def load_train_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                     generator: torch.Generator) -> int:
+    """Restore a `save_train_state` file in place; returns its step."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(state["model"], strict=True)
+    optimizer.load_state_dict(state["optimizer"])
+    generator.set_state(state["generator"])
+    return state["step"]

@@ -1,17 +1,41 @@
-"""Progress timer and eval log writer (the parts of wseg_tpu/utils/logging.py
-that the ported CLIs use; reference tool/pyutils.py and eval.py:89-106)."""
+"""Meters, a progress timer, a scalar event writer and the eval log writer
+(the parts of wseg_tpu/utils/logging.py that the ported CLIs use; reference
+tool/pyutils.py and eval.py:89-106). Standard library only."""
 
 from __future__ import annotations
 
+import json
 import os
 import time
 
 
+class AverageMeter:
+    """Running means keyed by metric name."""
+
+    def __init__(self):
+        self._data: dict[str, list] = {}
+
+    def add(self, values: dict):
+        for k, v in values.items():
+            acc = self._data.setdefault(k, [0.0, 0])
+            acc[0] += float(v)
+            acc[1] += 1
+
+    def get(self, *keys: str):
+        vals = tuple(self._data[k][0] / max(self._data[k][1], 1) for k in keys)
+        return vals[0] if len(vals) == 1 else vals
+
+    def pop(self):
+        """Reset every mean."""
+        self._data.clear()
+
+
 class Timer:
-    """Wall-clock timer with progress-based ETA."""
+    """Wall-clock timer with progress-based ETA and a resettable stage clock."""
 
     def __init__(self, starting_msg: str | None = None):
         self.start = time.time()
+        self.stage_start = self.start
         self.est_finish = self.start
         if starting_msg is not None:
             print(starting_msg, time.ctime(time.time()))
@@ -22,6 +46,33 @@ class Timer:
 
     def str_est_finish(self) -> str:
         return str(time.ctime(self.est_finish))
+
+    def get_stage_elapsed(self) -> float:
+        return time.time() - self.stage_start
+
+    def reset_stage(self):
+        self.stage_start = time.time()
+
+
+class ScalarWriter:
+    """Scalar events as JSON lines in `<logdir>/events.jsonl` (the JAX
+    package's format, without its optional tensorboardX mirror)."""
+
+    def __init__(self, logdir: str):
+        os.makedirs(logdir, exist_ok=True)
+        self._path = os.path.join(logdir, "events.jsonl")
+
+    def _write(self, rec: dict):
+        with open(self._path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+    def add_scalar(self, tag: str, value, step: int):
+        self._write({"t": time.time(), "step": int(step), tag: float(value)})
+
+    def add_scalars(self, main_tag: str, values: dict, step: int):
+        rec = {"t": time.time(), "step": int(step)}
+        rec.update({f"{main_tag}/{k}": float(v) for k, v in values.items()})
+        self._write(rec)
 
 
 def writedict(f, dictionary: dict):

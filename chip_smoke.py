@@ -6,24 +6,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
   1. device: a CUDA card of compute capability 9.0; prints nvidia-smi's name
      and power limit;
   2. build: every CUDA kernel of the port, from kernels/csrc, nvcc in parallel;
-  3. PCM kernel vs plain: the PCM kernel against its plain PyTorch version on
-     the card (f32, TF32 off) at the scale-2 pair of a 384x512 image, a hw
-     tail (700), a masked case, and the main path's own shape with bf16
-     features;
+  3. PCM kernels vs plain: each PCM variant against its plain PyTorch twin
+     on the card: the f32 FMA kernel (TF32 off) at the scale-2 pair of a
+     384x512 image, a hw tail (700) and a masked case; the tensor-core
+     kernel (bf16 features) against the bf16 rounding rule at a masked hw
+     tail with C = 23 and at the main path's own shape, where it is timed
+     beside the FMA kernel on the same inputs;
   4. slice parity: the full-width ContrastNet through make_fused_msf_fn at
      64x96 on the card (kernel, f32, TF32 off) against the same weights on the
      CPU (plain PCM);
   5. CAM inference at working size: make_fused_msf_fn at 384x512, 4 scales x
      flip, batch 8, bf16 trunk and f32 fusion, under torch.inference_mode();
      then CamInferencer.infer_batch on two images of different sizes (the
-     bucketed, masked path). The PCM launch count and torch.profiler both
-     have to show the kernel on this path;
-  6. conv kernel vs plain: the dilated 3x3 conv kernel (K2) against its plain
+     bucketed, masked path). The tensor-core PCM variant's launch count and
+     torch.profiler both have to show that kernel on this path;
+  6. conv kernels vs plain: the dilated 3x3 conv (K2) against its plain
      version, f32 (TF32 off) at the JAX tests' shapes, a co-tiling case and a
-     tail case; bf16 at the probe's and b7's shapes, timed at both beside its
-     plain version, its bound and the F.conv2d yardstick;
-  7. the conv probe (cli/conv_probe.py) at its defaults: the launch count and
-     torch.profiler both have to show K2 on this path;
+     tail case; bf16 through the wgmma kernel at a tail case and at the
+     probe's and b7's shapes, timed at both beside the mma.sync variant, the
+     plain version, the bound and the F.conv2d yardstick;
+  7. the conv probe (cli/conv_probe.py) at its defaults: the wgmma variant's
+     launch count and torch.profiler both have to show that kernel there;
   8. training parity: one full-width dual-view step (crop 64, low_res 32,
      batch 2, f32, TF32 off, dropout off, the same intra-view keys) on the
      card and on the CPU from the same weights;
@@ -54,7 +57,7 @@ from wseg_tpu_torch.kernels import _build, conv_cuda, pcm_cuda
 from wseg_tpu_torch.models import build_model
 from wseg_tpu_torch.models.layers import Dropout2d
 from wseg_tpu_torch.ops.conv import conv3x3_dilated_plain
-from wseg_tpu_torch.ops.pcm import pcm_flat
+from wseg_tpu_torch.ops.pcm import pcm_flat, pcm_flat_bf16
 from wseg_tpu_torch.train.contrast import make_train_step
 from wseg_tpu_torch.train.optim import PolySGD, param_groups
 
@@ -63,8 +66,9 @@ RTOL, ATOL = 2e-3, 2e-4          # the kernel's tolerance (tests/test_pcm_pallas
 SLICE_ATOL = 1e-3                # fused CAM, card (kernel) vs CPU (plain)
 H0, W0, BATCH = 384, 512, 8      # bench.py --mode cam working size
 SCALES = (0.5, 1.0, 1.5, 2.0)
-PCM_KERNEL_NAME = "pcm_fused_kernel"
-CONV_KERNEL_NAME = "conv3x3_bf16_kernel"
+PCM_KERNEL_NAME = "pcm_mma_kernel"         # bf16 features, the main path
+PCM_KERNEL_NAMES = ("pcm_mma_kernel", "pcm_prep_kernel")  # PCM's device time
+CONV_KERNEL_NAME = "conv3x3_wgmma_kernel"  # bf16, TMA-able shapes, the probe path
 CONV_RTOL = 1e-4                 # K2 in f32 (TF32 off), tests/test_conv_pallas.py
 CONV_BF16_RTOL = 1e-2            # K2 in bf16: bf16 output, a relative step of 2^-8;
 CONV_BF16_ATOL_RMS = 1e-2        # atol is this times the RMS of the f32 plain result
@@ -148,8 +152,10 @@ def pcm_bytes(cam, f, mask) -> float:
 
 
 def phase_kernel_vs_plain(card_name: str) -> dict:
-    """The kernel against the plain version on the same inputs; bf16 features
-    enter the plain version widened to f32 (exact), as the kernel reads them."""
+    """Each variant against its plain twin on the same inputs: f32 features
+    (the FMA kernel) against pcm_flat, bf16 features (the tensor-core
+    kernel) against pcm_flat_bf16, the rounding rule that kernel shares with
+    the TPU kernel (fn rounded once to bf16, products in f32)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     hw2 = (H0 // 8 * 2) * (W0 // 8 * 2)  # stride-8 map of the scale-2 view
     cases = [
@@ -157,30 +163,40 @@ def phase_kernel_vs_plain(card_name: str) -> dict:
         ("tail_hw700", dict(n=1, hw=700, cf=64)),
         ("tail_hw700_cf192", dict(n=2, hw=700, cf=192)),
         ("masked_scale1", dict(n=4, hw=hw2 // 4, cf=192, masked=True)),
+        ("tail_hw700_bf16_masked_c23", dict(n=2, hw=700, cf=192, c=23, masked=True,
+                                            f_dtype=torch.bfloat16)),
         ("main_path_bf16", dict(n=2 * BATCH, hw=hw2, cf=192, f_dtype=torch.bfloat16)),
     ]
-    _, peak_flops, peak_bw = peaks(card_name)
+    part, f32_peak, peak_bw = peaks(card_name)
     row = None
     for name, kw in cases:
         cam, f, mask = pcm_inputs(gen, **kw)
+        variant = pcm_cuda.pcm_variant(f.dtype, kw["cf"])
+        plain = pcm_flat_bf16 if f.dtype == torch.bfloat16 else pcm_flat
+        before = pcm_cuda.variant_launches[variant]
         got = pcm_cuda.pcm_fused(cam, f, mask=mask)
         torch.cuda.synchronize()
-        want = pcm_flat(cam, f.float(), mask=mask)
+        want = plain(cam, f, mask=mask)
         err = (got - want).abs()
         tol = ATOL + RTOL * want.abs()
-        ok = bool((err <= tol).all())
-        msg = (f"[kernel] {name} {tuple(f.shape)} {str(f.dtype)[6:]} "
+        ok = bool((err <= tol).all()) and pcm_cuda.variant_launches[variant] == before + 1
+        msg = (f"[kernel] {name} {tuple(f.shape)} {str(f.dtype)[6:]} variant {variant} "
                f"max_abs_err={err.max().item():.3e} max_rel_err={(err / want.abs().clamp_min(1e-12)).max().item():.3e} "
                f"within rtol={RTOL} atol={ATOL}: {ok}")
         if name in ("scale2_pair_f32", "main_path_bf16"):
             ms = cuda_ms(lambda: pcm_cuda.pcm_fused(cam, f, mask=mask))
-            plain_ms = cuda_ms(lambda: pcm_flat(cam, f.float(), mask=mask), iters=3, warmup=1)
+            plain_ms = cuda_ms(lambda: plain(cam, f, mask=mask), iters=3, warmup=1)
             flops, nbytes = pcm_flops(kw["n"], kw["hw"], kw["cf"]), pcm_bytes(cam, f, mask)
-            t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+            peak = BF16_PEAKS[part] if variant == "mma" else f32_peak
+            t_ops, t_bytes = flops / peak * 1e3, nbytes / peak_bw * 1e3
             msg += (f" | {card_name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                    f"bound {max(t_ops, t_bytes):.3f} ms ({flops / 1e9:.1f} GFLOP f32, "
+                    f"bound {max(t_ops, t_bytes):.3f} ms ({flops / 1e9:.1f} GFLOP at the "
+                    f"{'bf16 tensor-core' if variant == 'mma' else 'f32 CUDA-core'} peak, "
                     f"{nbytes / 1e6:.1f} MB), {flops / ms / 1e9:.1f} TFLOP/s")
             if name == "main_path_bf16":
+                fma_ms = cuda_ms(lambda: pcm_cuda.pcm_fused(cam, f, mask=mask, variant="fma"))
+                msg += (f"; the FMA kernel on the same bf16 inputs {fma_ms:.3f} ms "
+                        f"({flops / fma_ms / 1e9:.1f} TFLOP/s)")
                 row = {
                     "name": "pcm_fused", "route": "cuda",
                     "source": "wseg_tpu_torch/kernels/csrc/pcm.cu",
@@ -210,15 +226,16 @@ def phase_slice_parity():
                   for s in SCALES)
     label = (torch.rand(b, 20, generator=gen) > 0.5).float()
     want = make_fused_msf_fn(model_cpu, (h0, w0))(views, label)
-    pcm_cuda.launches = 0
+    pcm_cuda.reset_launches()
     got = make_fused_msf_fn(model_gpu, (h0, w0))(tuple(v.cuda() for v in views), label.cuda())
     torch.cuda.synchronize()
-    launches = pcm_cuda.launches
+    launches = pcm_cuda.variant_launches["fma"]
     err = (got.cpu() - want).abs().max().item()
     print(f"[slice-parity] fused CAM {tuple(got.shape)} card (kernel, f32, TF32 off) vs CPU "
           f"(plain): max_abs_err={err:.3e} (atol {SLICE_ATOL}), PCM launches {launches}", flush=True)
-    if launches != len(SCALES):
-        raise SystemExit(f"chip_smoke: expected {len(SCALES)} PCM launches, saw {launches}")
+    if launches != len(SCALES) or pcm_cuda.launches != len(SCALES):
+        raise SystemExit(f"chip_smoke: expected {len(SCALES)} f32 PCM launches, saw {launches} "
+                         f"of {pcm_cuda.launches}")
     if not err <= SLICE_ATOL:
         raise SystemExit("chip_smoke: the slice on the card disagrees with the CPU")
 
@@ -265,15 +282,16 @@ def phase_working_size(card: str) -> int:
     out = fn(views, label)  # warm-up (cuDNN autotune)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pcm_cuda.launches = 0
+    pcm_cuda.reset_launches()
     t0 = time.perf_counter()
     out = fn(views, label)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = pcm_cuda.launches
+    launches = pcm_cuda.variant_launches["mma"]
     check_fused(out, (BATCH, 20, H0, W0))
-    if launches < 1:
-        raise SystemExit("chip_smoke: the main path launched no PCM kernel")
+    if launches < 1 or launches != pcm_cuda.launches:
+        raise SystemExit(f"chip_smoke: the main path launched {launches} tensor-core PCM "
+                         f"kernels of {pcm_cuda.launches} PCM launches")
     peak_mem = torch.cuda.max_memory_allocated()
 
     iters = 3
@@ -285,8 +303,8 @@ def phase_working_size(card: str) -> int:
     steady = (time.perf_counter() - t0) / iters
 
     totals = profile_kernels(lambda: fn(views, label))
-    pcm_ms = sum(v for k, v in totals.items() if PCM_KERNEL_NAME in k)
-    if pcm_ms <= 0:
+    pcm_ms = sum(v for k, v in totals.items() if any(n in k for n in PCM_KERNEL_NAMES))
+    if not any(PCM_KERNEL_NAME in k and v > 0 for k, v in totals.items()):
         raise SystemExit(f"chip_smoke: torch.profiler saw no {PCM_KERNEL_NAME} on the main path")
     busy = sum(totals.values())
     print(f"{card} | slice 384x512 4 scales x flip, batch {BATCH}, bf16 trunk, f32 fusion: "
@@ -296,8 +314,9 @@ def phase_working_size(card: str) -> int:
           f"(torch.cuda.max_memory_allocated)")
     print(f"{card} | PCM launches per image {launches / BATCH:.3f} "
           f"({launches} per batch of {BATCH})")
-    print(f"{card} | profiled batch: device busy {busy:.1f} ms; PCM kernel {pcm_ms:.1f} ms "
-          f"({100 * pcm_ms / busy:.1f}% of device time)")
+    print(f"{card} | profiled batch: device busy {busy:.1f} ms; PCM kernels "
+          f"({' + '.join(PCM_KERNEL_NAMES)}) {pcm_ms:.2f} ms ({100 * pcm_ms / busy:.2f}% of "
+          f"device time)")
     for k, v in sorted(totals.items(), key=lambda kv: -kv[1])[:12]:
         print(f"{card} |   {v:9.2f} ms  {k[:110]}")
 
@@ -313,15 +332,16 @@ def phase_working_size(card: str) -> int:
         lab[[i, 14]] = 1.0
         items.append((views_i, lab, (h, w)))
     inferencer = CamInferencer(model, bucket=64)
-    pcm_cuda.launches = 0
+    pcm_cuda.reset_launches()
     cams = inferencer.infer_batch(items)
     torch.cuda.synchronize()
-    masked_launches = pcm_cuda.launches
+    masked_launches = pcm_cuda.variant_launches["mma"]
     for cam, (_, _, hw) in zip(cams, items):
         check_fused(torch.from_numpy(cam), (20, *hw))
     totals_b = profile_kernels(lambda: inferencer.infer_batch(items))
     if masked_launches < 1 or not any(PCM_KERNEL_NAME in k for k in totals_b):
-        raise SystemExit("chip_smoke: the bucketed (masked) path did not run the PCM kernel")
+        raise SystemExit("chip_smoke: the bucketed (masked) path did not run the tensor-core "
+                         "PCM kernel")
     print(f"{card} | infer_batch bucketed+masked, 2 images (333x500, 375x441): "
           f"PCM launches {masked_launches}", flush=True)
     return launches
@@ -335,10 +355,12 @@ def conv_inputs(gen, shape, co, dtype):
 
 def phase_conv_vs_plain(card_name: str, card: str) -> dict:
     """K2 against its plain version on the same inputs: f32 (TF32 off) at
-    the JAX tests' shapes plus a tail case, bf16 at the probe's and b7's
-    shapes against the plain version in f32 on the same bf16 inputs, and
-    K2's time at both beside its plain version, its bound and one F.conv2d
-    call (the yardstick, channels_last; the port never calls it)."""
+    the JAX tests' shapes plus a tail case; bf16 (the wgmma kernel) at a
+    tail case and at the probe's and b7's shapes against the plain version
+    in f32 on the same bf16 inputs; and its time at both beside the
+    mma.sync variant on the same inputs, its plain version, its bound and
+    one F.conv2d call (the yardstick, channels_last; the port never calls
+    it)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -366,25 +388,34 @@ def phase_conv_vs_plain(card_name: str, card: str) -> dict:
 
     part, _, peak_bw = peaks(card_name)
     row = None
-    for name, shape in [("probe_bf16", (2 * BATCH, H0 // 8, W0 // 8, 1024)),
-                        ("b7_bf16", (2 * BATCH, H0 // 4, W0 // 4, 1024))]:
-        co, d = 2048, 4
+    for name, shape, co, d, tco in [
+            ("tail_w100_ci40_bf16", (2, 13, 100, 40), 136, 5, 128),
+            ("probe_bf16", (2 * BATCH, H0 // 8, W0 // 8, 1024), 2048, 4, 256),
+            ("b7_bf16", (2 * BATCH, H0 // 4, W0 // 4, 1024), 2048, 4, 256)]:
         x, k = conv_inputs(gen, shape, co, torch.bfloat16)
-        got = conv_cuda.conv3x3_dilated(x, k, dilation=d).float()
+        variant = conv_cuda.conv_variant(x.dtype, shape[3], co, x.data_ptr() % 16 == 0)
+        before = conv_cuda.variant_launches["wgmma"]
+        got = conv_cuda.conv3x3_dilated(x, k, dilation=d, tile_co=tco).float()
         torch.cuda.synchronize()
         want = conv3x3_dilated_plain(x.float(), k.float(), d)
         err = (got - want).abs()
         atol = CONV_BF16_ATOL_RMS * float(want.pow(2).mean().sqrt())
-        ok = bool((err <= atol + CONV_BF16_RTOL * want.abs()).all())
+        ok = bool((err <= atol + CONV_BF16_RTOL * want.abs()).all()) and variant == "wgmma" \
+            and conv_cuda.variant_launches["wgmma"] == before + 1
         max_err = err.max().item()
-        print(f"[conv] {name} x {shape} -> {co} d={d} bf16: max_abs_err={max_err:.3e} "
+        print(f"[conv] {name} x {shape} -> {co} d={d} tile_co={tco} bf16 variant {variant} "
+              f"tile {conv_cuda.conv_tile_shape(shape[1], shape[2])}: max_abs_err={max_err:.3e} "
               f"within rtol={CONV_BF16_RTOL} atol={atol:.3e}: {ok}", flush=True)
         del got, want, err
         if not ok:
             raise SystemExit(f"chip_smoke: conv kernel disagrees with its plain version ({name})")
+        if name.startswith("tail"):
+            continue
         x_nchw = x.permute(0, 3, 1, 2)  # channels_last memory
         k_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         ms = cuda_ms(lambda: conv_cuda.conv3x3_dilated(x, k, dilation=d))
+        mma_sync_ms = cuda_ms(lambda: conv_cuda.conv3x3_dilated(x, k, dilation=d,
+                                                                variant="mma_sync"))
         plain_ms = cuda_ms(lambda: conv3x3_dilated_plain(x.float(), k.float(), d),
                            iters=2, warmup=1)
         library_ms = cuda_ms(lambda: F.conv2d(x_nchw, k_oihw, padding=d, dilation=d))
@@ -393,8 +424,10 @@ def phase_conv_vs_plain(card_name: str, card: str) -> dict:
         nbytes = 2.0 * (x.numel() + k.numel() + n * h * w * co)
         t_ops, t_bytes = flops / BF16_PEAKS[part] * 1e3, nbytes / peak_bw * 1e3
         print(f"{card} | K2 conv3x3_dilated {name} ({n}, {h}, {w}, {ci}) -> {co} d={d}: "
-              f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-              f"F.conv2d {library_ms:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms "
+              f"wgmma kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), mma.sync kernel "
+              f"{mma_sync_ms:.3f} ms ({flops / mma_sync_ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.3f} ms, F.conv2d {library_ms:.3f} ms "
+              f"({flops / library_ms / 1e9:.1f} TFLOP/s), bound {max(t_ops, t_bytes):.3f} ms "
               f"({flops / 1e12:.2f} TFLOP at the bf16 tensor-core peak; {nbytes / 1e9:.3f} GB)",
               flush=True)
         row = {  # the last case, b7's shape, stands for K2 in the kernel table
@@ -414,14 +447,14 @@ def phase_conv_probe(card: str) -> int:
     """K2's path: the probe entry point at its defaults."""
     from wseg_tpu_torch.cli import conv_probe
 
-    conv_cuda.launches = 0
+    conv_cuda.reset_launches()
     totals = profile_kernels(lambda: conv_probe.main([]))
-    launches = conv_cuda.launches
+    launches = conv_cuda.variant_launches["wgmma"]
     k2_ms = sum(v for k, v in totals.items() if CONV_KERNEL_NAME in k)
-    print(f"{card} | conv probe: K2 launches {launches}, torch.profiler {CONV_KERNEL_NAME} "
-          f"{k2_ms:.1f} ms", flush=True)
-    if launches < 1 or k2_ms <= 0:
-        raise SystemExit("chip_smoke: the conv probe did not run the K2 kernel")
+    print(f"{card} | conv probe: K2 launches {conv_cuda.variant_launches}, torch.profiler "
+          f"{CONV_KERNEL_NAME} {k2_ms:.1f} ms", flush=True)
+    if launches < 1 or launches != conv_cuda.launches or k2_ms <= 0:
+        raise SystemExit("chip_smoke: the conv probe did not run the wgmma K2 kernel")
     torch.cuda.empty_cache()
     return launches
 

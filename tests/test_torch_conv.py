@@ -84,5 +84,6 @@ def test_conv_probe_cli_on_cpu():
                                "--dtype", "float32"])
     assert [r["name"] for r in results] == ["library F.conv2d", "k2", "k2", "k2"]
     assert [r.get("tile_co") for r in results[1:]] == [128, 256, 512]
+    assert {r["variant"] for r in results[1:]} == {"plain"}
     for r in results[1:]:
         assert r["ms"] > 0 and r["max_abs_err"] <= 1e-4

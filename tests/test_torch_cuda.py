@@ -12,7 +12,7 @@ import torch
 from wseg_tpu_torch.kernels import conv_cuda, pcm_cuda
 from wseg_tpu_torch.models import build_model
 from wseg_tpu_torch.ops.conv import conv3x3_dilated_plain
-from wseg_tpu_torch.ops.pcm import pcm, pcm_flat
+from wseg_tpu_torch.ops.pcm import pcm, pcm_flat, pcm_flat_bf16
 from wseg_tpu_torch.train.contrast import make_train_step
 from wseg_tpu_torch.train.optim import PolySGD, param_groups
 
@@ -36,15 +36,55 @@ def cuda():
     (3, 65, 7, True, torch.float32),
 ])
 def test_pcm_kernel_matches_plain(cuda, n, hw, cf, masked, f_dtype):
+    """Each variant against its plain twin: f32 features against pcm_flat,
+    bf16 ones (the tensor-core kernel) against the bf16 rounding rule."""
     gen = torch.Generator(device=cuda).manual_seed(hw)
     f = torch.randn(n, hw, cf, generator=gen, device=cuda).to(f_dtype)
     cam = torch.rand(n, hw, 21, generator=gen, device=cuda)
     mask = (torch.rand(n, hw, generator=gen, device=cuda) > 0.3).float() if masked else None
-    before = pcm_cuda.launches
+    variant = pcm_cuda.pcm_variant(f.dtype, cf)
+    before = pcm_cuda.launches, pcm_cuda.variant_launches[variant]
     got = pcm_cuda.pcm_fused(cam, f, mask=mask)
     torch.cuda.synchronize()
-    assert pcm_cuda.launches == before + 1
-    torch.testing.assert_close(got, pcm_flat(cam, f.float(), mask=mask), rtol=2e-3, atol=2e-4)
+    assert (pcm_cuda.launches, pcm_cuda.variant_launches[variant]) == (before[0] + 1,
+                                                                       before[1] + 1)
+    plain = pcm_flat_bf16 if f_dtype == torch.bfloat16 else pcm_flat
+    torch.testing.assert_close(got, plain(cam, f, mask=mask), rtol=2e-3, atol=2e-4)
+
+
+# (n, hw, cf, c, masked): hw not a multiple of 64, masks, C = 1 and C = 23,
+# feature widths across the register templates (64, 128, 192, 256 channels)
+@pytest.mark.parametrize("n,hw,cf,c,masked", [
+    (16, 3072, 192, 21, False),
+    (2, 700, 192, 21, True),
+    (3, 65, 7, 1, True),
+    (2, 333, 256, 23, False),
+    (1, 1000, 100, 23, True),
+    (4, 1, 192, 21, False),
+])
+def test_pcm_mma_kernel_matches_rounding_rule(cuda, n, hw, cf, c, masked):
+    gen = torch.Generator(device=cuda).manual_seed(hw + c)
+    f = torch.randn(n, hw, cf, generator=gen, device=cuda).bfloat16()
+    cam = torch.rand(n, hw, c, generator=gen, device=cuda)
+    mask = (torch.rand(n, hw, generator=gen, device=cuda) > 0.3).float() if masked else None
+    before = pcm_cuda.variant_launches["mma"]
+    got = pcm_cuda.pcm_fused(cam, f, mask=mask)
+    torch.cuda.synchronize()
+    assert pcm_cuda.variant_launches["mma"] == before + 1
+    torch.testing.assert_close(got, pcm_flat_bf16(cam, f, mask=mask), rtol=2e-3, atol=2e-4)
+
+
+def test_pcm_fma_variant_takes_bf16_on_request(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    f = torch.randn(2, 300, 192, generator=gen, device=cuda).bfloat16()
+    cam = torch.rand(2, 300, 21, generator=gen, device=cuda)
+    before = pcm_cuda.variant_launches["fma"]
+    got = pcm_cuda.pcm_fused(cam, f, variant="fma")
+    torch.cuda.synchronize()
+    assert pcm_cuda.variant_launches["fma"] == before + 1
+    torch.testing.assert_close(got, pcm_flat(cam, f.float()), rtol=2e-3, atol=2e-4)
+    with pytest.raises(ValueError):
+        pcm_cuda.pcm_fused(cam, f.float(), variant="mma")
 
 
 def test_pcm_kernel_nchw_masked(cuda):
@@ -104,12 +144,70 @@ def test_conv_kernel_matches_plain_f32(cuda, shape, co, d, tile_co):
 ])
 def test_conv_kernel_matches_plain_bf16(cuda, shape, co, d, tile_co):
     """bf16 in, f32 accumulation, bf16 out (a relative step of 2^-8): held
-    against the plain version in f32 on the same bf16 inputs."""
+    against the plain version in f32 on the same bf16 inputs. Each shape runs
+    the variant that conv_variant picks for it."""
     x, k = _conv_inputs(cuda, shape, co, torch.bfloat16, seed=co + d)
+    variant = conv_cuda.conv_variant(x.dtype, shape[3], co)
+    before = conv_cuda.variant_launches[variant]
     got = conv_cuda.conv3x3_dilated(x, k, dilation=d, tile_co=tile_co).float()
+    assert conv_cuda.variant_launches[variant] == before + 1
     want = conv3x3_dilated_plain(x.float(), k.float(), d)
     rms = float(want.pow(2).mean().sqrt())
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2 * rms)
+
+
+# (x shape, CO, dilation, tile_co) for the wgmma kernel: W not a multiple of
+# the tile width, H tails, images whose H*W is no multiple of 128 (a row-major
+# 128-pixel tiling would cross a batch boundary), dilations larger than the
+# tile's height, CI a multiple of 8 but not of 64 (the channel tail is TMA's
+# zero fill), and tile_co 64 / 128 / 256 / 512
+WGMMA_CASES = [
+    ((2, 12, 100, 64), 128, 2, 256),
+    ((2, 13, 64, 64), 256, 3, 256),
+    ((3, 5, 24, 64), 200, 9, 256),
+    ((1, 20, 128, 64), 64, 6, 64),
+    ((2, 13, 19, 40), 136, 5, 128),
+    ((2, 13, 19, 72), 264, 3, 64),
+    ((1, 3, 7, 8), 8, 1, 256),
+    ((2, 20, 30, 64), 512, 4, 64),
+    ((2, 20, 30, 64), 512, 4, 128),
+    ((2, 20, 30, 64), 512, 4, 256),
+    ((2, 20, 30, 64), 512, 4, 512),
+    ((2, 20, 30, 64), 520, 4, 384),
+]
+
+
+@pytest.mark.parametrize("shape,co,d,tile_co", WGMMA_CASES)
+def test_conv_wgmma_kernel_matches_plain(cuda, shape, co, d, tile_co):
+    x, k = _conv_inputs(cuda, shape, co, torch.bfloat16, seed=sum(shape) + co)
+    assert conv_cuda.conv_variant(x.dtype, shape[3], co) == "wgmma"
+    before = conv_cuda.variant_launches["wgmma"]
+    got = conv_cuda.conv3x3_dilated(x, k, dilation=d, tile_co=tile_co).float()
+    torch.cuda.synchronize()
+    assert conv_cuda.variant_launches["wgmma"] == before + 1
+    want = conv3x3_dilated_plain(x.float(), k.float(), d)
+    rms = float(want.pow(2).mean().sqrt())
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2 * rms)
+
+
+def test_conv_variants_agree_and_refuse(cuda):
+    """mma_sync on request takes what wgmma takes and agrees with it; a
+    misaligned x goes to mma_sync; wgmma cannot be asked of what TMA refuses."""
+    x, k = _conv_inputs(cuda, (2, 16, 24, 64), 128, torch.bfloat16, seed=1)
+    a = conv_cuda.conv3x3_dilated(x, k, dilation=2, variant="wgmma").float()
+    b = conv_cuda.conv3x3_dilated(x, k, dilation=2, variant="mma_sync").float()
+    rms = float(b.pow(2).mean().sqrt())
+    torch.testing.assert_close(a, b, rtol=1e-2, atol=1e-2 * rms)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    shifted = flat[1:].view(x.shape)  # 2 bytes off the 16-byte alignment
+    shifted.copy_(x)
+    before = conv_cuda.variant_launches["mma_sync"]
+    torch.testing.assert_close(conv_cuda.conv3x3_dilated(shifted, k, dilation=2).float(), b)
+    assert conv_cuda.variant_launches["mma_sync"] == before + 1
+    with pytest.raises(ValueError):
+        conv_cuda.conv3x3_dilated(shifted, k, dilation=2, variant="wgmma")
+    with pytest.raises(ValueError):
+        conv_cuda.conv3x3_dilated(x.float(), k.float(), variant="wgmma")
 
 
 def test_conv_kernel_rejects_unsupported(cuda):

@@ -123,16 +123,28 @@ def test_pcm_plain_matches_jax(masked):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("n,hw,cf", [(2, 24 * 24, 192), (1, 700, 64)])
-def test_pcm_plain_matches_pallas_kernel(n, hw, cf):
+@pytest.mark.parametrize("n,hw,cf,bf16", [
+    (2, 24 * 24, 192, False), (1, 700, 64, False), (1, 700, 192, True),
+])
+def test_pcm_plain_matches_pallas_kernel(n, hw, cf, bf16):
     """The plain version against the TPU kernel run in interpret mode, at the
-    shapes of tests/test_pcm_pallas.py and its tolerance."""
+    shapes of tests/test_pcm_pallas.py and its tolerance. With bf16 features
+    both sides get the same bf16 f, and the plain side is the tensor-core
+    kernel's rounding rule (fn rounded once to bf16), which is also what the
+    CPU route of the kernel's wrapper runs."""
     rng = np.random.RandomState(9)
     f = rng.randn(n, hw, cf).astype(np.float32)
     cam = rng.rand(n, hw, 21).astype(np.float32)
-    want = np.asarray(jax_pcm_fused(jnp.asarray(cam), jnp.asarray(f), interpret=True))
-    got = tpcm.pcm_flat(torch.from_numpy(cam), torch.from_numpy(f)).numpy()
+    fj, ft = jnp.asarray(f), torch.from_numpy(f)
+    if bf16:
+        fj, ft = fj.astype(jnp.bfloat16), ft.bfloat16()
+    want = np.asarray(jax_pcm_fused(jnp.asarray(cam), fj, interpret=True))
+    plain = tpcm.pcm_flat_bf16 if bf16 else tpcm.pcm_flat
+    got = plain(torch.from_numpy(cam), ft).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)
+    if bf16:
+        routed = pcm_cuda.pcm_fused(torch.from_numpy(cam), ft)
+        np.testing.assert_array_equal(routed.numpy(), got)
 
 
 @pytest.mark.parametrize("masked", [False, True])

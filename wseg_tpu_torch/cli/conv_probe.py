@@ -8,7 +8,9 @@ of scripts/conv_probe.py.
 
 Times `F.conv2d` (channels_last; the yardstick only, never K2 itself) and
 K2 at each tile_co in TILE_CO, ITERS calls each after a warm-up, and prints
-ms, TFLOP/s and K2's max abs error against the yardstick. Runs on the GPU
+ms, TFLOP/s and K2's max abs error against the yardstick. At the default
+bf16 shape K2 is the wgmma kernel, whose N width follows tile_co (128 ->
+wgmma N = 128; 256 and 512 -> N = 256). Runs on the GPU
 unless `--device cpu`, where K2's wrapper takes its plain version and the
 times are the CPU's. In float32 TF32 is turned off, so both sides compute in
 full float32.
@@ -58,7 +60,7 @@ def main(argv=None) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
-    from wseg_tpu_torch.kernels.conv_cuda import conv3x3_dilated
+    from wseg_tpu_torch.kernels.conv_cuda import conv3x3_dilated, conv_variant
     from wseg_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -88,13 +90,16 @@ def main(argv=None) -> list[dict]:
     results = [{"name": "library F.conv2d", "ms": ms, "tflops": flops / ms / 1e9}]
     print(f"library F.conv2d: {ms:.3f} ms  {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
 
+    # the kernel a card runs for these inputs (the CPU runs the plain version)
+    variant = conv_variant(dtype, ci, co, x.data_ptr() % 16 == 0) if device.type == "cuda" \
+        else "plain"
     for tco in TILE_CO:
         out = conv3x3_dilated(x, k, dilation=d, tile_co=tco)
         err = float((out.float() - ref).abs().max())
         ms = _time_ms(lambda: conv3x3_dilated(x, k, dilation=d, tile_co=tco), device)
-        results.append({"name": "k2", "tile_co": tco, "ms": ms,
+        results.append({"name": "k2", "variant": variant, "tile_co": tco, "ms": ms,
                         "tflops": flops / ms / 1e9, "max_abs_err": err})
-        print(f"k2 tile_co={tco}: {ms:.3f} ms  {flops / ms / 1e9:.1f} TFLOP/s  "
+        print(f"k2 ({variant}) tile_co={tco}: {ms:.3f} ms  {flops / ms / 1e9:.1f} TFLOP/s  "
               f"max_abs_err={err:.3g}", flush=True)
     return results
 

@@ -3,9 +3,12 @@
 Each source is compiled by `nvcc` into a shared library with a plain C
 interface (no PyTorch headers: seconds, not minutes) and loaded with ctypes.
 Libraries go to `<repo>/build/wseg_tpu_torch/`, named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-not. Nothing is built at import time: the first launch builds, and
-`build_all()` builds every kernel at once, one nvcc per source in parallel.
+source, of every header under csrc/ that it includes (`#include "..."`,
+followed transitively) and of the flags, so an edited source or header is
+rebuilt and an unchanged one is not. TMA tensor maps are encoded through
+`cudaGetDriverEntryPoint`, so no library links libcuda (`-lcuda`).
+Nothing is built at import time: the first launch builds, and `build_all()`
+builds every kernel at once, one nvcc per source in parallel.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -38,8 +42,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the port's kernels")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """`<name>.cu` and the csrc/ headers it includes, directly or not."""
+    found: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            header = path.parent / inc
+            if header.exists():
+                todo.append(header)
+    return found
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -16,28 +16,45 @@
 // 2048, d = 4) the conv is 2*9*196608*1024*2048 = 7.42 TFLOP, 7.5 ms at the
 // H100's 989 TFLOP/s bf16 peak, against 1.25 GB of operands and output
 // (0.37 ms at 3.35 TB/s). The design is therefore about feeding the tensor
-// cores:
-//   * bf16: 128x128 block tiles, K chunks of 32, 8 warps each owning 64x32
-//     of the tile; mma.sync m16n8k16 (bf16 in, f32 accumulate) on operands
-//     read with ldmatrix (.trans for B, which is stored K-major). A and B are
-//     staged in shared memory with cp.async, 16 bytes a thread (src-size 0
-//     zero-fills the halo and the channel tails), double-buffered so that
-//     the next chunk's loads run under this chunk's MMAs. Rows are padded by
-//     16 bytes so that ldmatrix reads hit distinct banks.
-//   * f32 (the exactness path): the same block tile with f32 FMA on the CUDA
-//     cores, 8x8 outputs a thread, no TF32.
-// mma.sync reaches only part of the wgmma peak that the bound assumes; wgmma,
-// TMA, warp specialisation and a deeper pipeline are later work.
+// cores. Three kernels, chosen by kernels/conv_cuda.py:conv_variant before
+// the launch:
+//   * conv3x3_wgmma_kernel (bf16, CI and CO multiples of 8, 16-byte aligned
+//     x): the Hopper form. An M tile is a th x tw rectangle of 128 output
+//     pixels of one image. x is a 4-D TMA tensor (CI, W, H, B); the A tile
+//     of tap (dy, dx) and channels c0..c0+63 is ONE cp.async.bulk.tensor at
+//     the signed coordinates (c0, x0 + (dx-1)d, y0 + (dy-1)d, b), and TMA's
+//     zero fill of out-of-bounds elements is the halo and the channel tail:
+//     no thread computes an address. B is a K-major copy of the kernel,
+//     (CO, 9, CI), written by the wrapper, so both operands are K-major
+//     128-byte-swizzled tiles with the same wgmma descriptor. One producer
+//     warp keeps a 4-stage ring (16 KB of A + BN x 128 B of B a stage) full;
+//     two consumer warpgroups each run wgmma m64nBNk16 on their 64-row half,
+//     f32 accumulators in registers (setmaxnreg moves registers from the
+//     producer to them), keep one step's products in flight and hand the
+//     step before back through an mbarrier. The epilogue rounds to bf16 and
+//     stores straight from the registers. Persistent: one block per SM walks
+//     the tiles, pixel tiles fastest, so the ring runs on across tiles and
+//     every block in flight reads the same slice of the kernel.
+//   * conv3x3_bf16_kernel (every other bf16 shape): 128x128 block tiles, K
+//     chunks of 32, 8 warps each owning 64x32 of the tile; mma.sync m16n8k16
+//     on operands read with ldmatrix (.trans for B, stored K-major), staged
+//     with cp.async (src-size 0 zero-fills the halo and the channel tails;
+//     element-wise loads when CI or CO is not a multiple of 8 or a pointer
+//     is not 16-byte aligned), double-buffered, rows padded by 16 bytes so
+//     that ldmatrix reads hit distinct banks.
+//   * conv3x3_f32_kernel (the exactness path): the same block tile with f32
+//     FMA on the CUDA cores, 8x8 outputs a thread, no TF32.
 //
-// Tails: H and W (the halo), CI and CO are bounds-checked and zero-filled on
-// load and masked on store; nothing is padded in device memory. When CI or
-// CO is not a multiple of 8, or a pointer is not 16-byte aligned, the bf16
-// kernel loads element by element instead of with cp.async. `tile_co`
-// output channels go to one block, which walks them in 128-wide chunks.
+// Tails: H and W (the halo), CI and CO are zero-filled on load and masked on
+// store; nothing is padded in device memory. `tile_co` output channels go to
+// one block, which walks them in N-wide steps (wgmma: N = 64, 128 or 256;
+// mma.sync: 128).
 
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -79,45 +96,7 @@ __device__ __forceinline__ long long tap_offset(const Conv& p, const Pix& q, int
   return (((long long)q.b * p.h + iy) * p.w + ix) * p.ci;
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-}
-
-// 16-byte global -> shared copy; with valid == false it writes 16 zero bytes.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* ptr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(ptr)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* ptr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(ptr)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using namespace hopper;
 
 // Stage the K chunk `kt` (tap kt / nci, channels (kt % nci) * BK ..) of the
 // A tile (BM pixels) and the B tile (output channels n0 ..) into shared memory.
@@ -166,13 +145,13 @@ __device__ __forceinline__ void mma_chunk_bf16(float (&acc)[4][4][4], const __nv
                                                int lane) {
 #pragma unroll
   for (int kk = 0; kk < BK; kk += 16) {
-    unsigned af[4][4], bf[4][2];
+    uint32_t af[4][4], bf[4][2];
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi)
       ldsm_x4(af[mi], a_s + (wm + mi * 16 + (lane & 15)) * AST + kk + (lane >> 4) * 8);
 #pragma unroll
     for (int nj = 0; nj < 2; ++nj) {
-      unsigned r[4];
+      uint32_t r[4];
       ldsm_x4_trans(r, b_s + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * BST + wn + nj * 16 +
                            (lane >> 4) * 8);
       bf[2 * nj][0] = r[0];
@@ -324,6 +303,184 @@ conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ k,
   }
 }
 
+// ---- conv3x3_wgmma_kernel ------------------------------------------------
+
+constexpr int WG_BM = 128;          // output pixels per tile (th x tw)
+constexpr int WG_BK = 64;           // channels per K step: one 128-byte swizzle row
+constexpr int WG_STAGES = 4;        // TMA ring depth
+constexpr int WG_THREADS = 384;     // producer warpgroup + two consumer warpgroups
+constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;
+
+template <int N>
+struct WgTile {
+  static constexpr int B_BYTES = N * WG_BK * 2;
+  static constexpr int STAGE_BYTES = WG_A_BYTES + B_BYTES;
+  // ring + barriers + slack to align the ring to 1024 bytes (128B swizzle)
+  static constexpr int SMEM = WG_STAGES * STAGE_BYTES + 2 * WG_STAGES * 8 + 1024;
+};
+
+struct WgConv {
+  int h, w, co, d, tile_co, tw, tiles_w, tiles_h, n_groups, nci, tiles;
+};
+
+// Tile t: channel group t / (pixel tiles), then the pixel tile in row-major
+// order over (b, tile row, tile column), so the blocks in flight share one
+// group's slice of the kernel and walk the pixels.
+struct WgTileAt {
+  int b, x0, y0, co0, co_end;
+};
+
+__device__ __forceinline__ WgTileAt wg_tile(const WgConv& p, int t) {
+  WgTileAt r;
+  const int n_pix = p.tiles / p.n_groups;
+  const int group = t / n_pix;
+  t -= group * n_pix;
+  const int tx = t % p.tiles_w;
+  t /= p.tiles_w;
+  const int ty = t % p.tiles_h;
+  r.b = t / p.tiles_h;
+  r.x0 = tx * p.tw;
+  r.y0 = ty * (WG_BM / p.tw);
+  r.co0 = group * p.tile_co;
+  r.co_end = min(r.co0 + p.tile_co, p.co);
+  return r;
+}
+
+// Persistent: one block per SM walks tiles blockIdx.x, + gridDim.x, ... The
+// ring runs on across tiles, so the producer loads the next tile while the
+// consumers store this one. The blocks in flight at any time hold
+// consecutive tiles: ~132 pixel tiles of one channel group, so every block
+// streams the same slice of the kernel (4.7 MB at b7's shape) from L2, and
+// x, whose taps overlap between neighbouring tiles, once per group from
+// device memory. This order beat the channel groups fastest (x once, the
+// whole 37.7 MB kernel in L2) by 8-14% on the card.
+template <int N>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     __nv_bfloat16* __restrict__ out, WgConv p) {
+  using T = WgTile<N>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + WG_STAGES * T::STAGE_BYTES);
+  uint64_t* empty = full + WG_STAGES;
+  const int k_steps = 9 * p.nci;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread walks (tile, N step, tap, channel chunk) and keeps
+    // the ring full; the other 127 threads of the warpgroup leave.
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        const WgTileAt q = wg_tile(p, tile);
+        for (int n0 = q.co0; n0 < q.co_end; n0 += N) {
+          for (int kt = 0; kt < k_steps; ++kt) {
+            const int tap = kt / p.nci;
+            const int c0 = (kt - tap * p.nci) * WG_BK;
+            const int dy = tap / 3, dx = tap - 3 * (tap / 3);
+            mbar_wait(&empty[stage], phase);
+            uint8_t* a = ring + stage * T::STAGE_BYTES;
+            mbar_arrive_expect_tx(&full[stage], T::STAGE_BYTES);
+            tma_load_4d(a, &xmap, &full[stage], c0, q.x0 + (dx - 1) * p.d,
+                        q.y0 + (dy - 1) * p.d, q.b);
+            tma_load_3d(a + WG_A_BYTES, &kmap, &full[stage], c0, tap, n0);
+            if (++stage == WG_STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup cw owns rows 64*cw .. 64*cw + 63 of each tile
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int t = threadIdx.x & 127;
+    if (t == 0)
+      for (int s = 0; s < WG_STAGES; ++s) mbar_arrive(&empty[s]);  // the ring starts empty
+    const int warp = t >> 5, lane = t & 31;
+    const int r0 = cw * 64 + warp * 16 + (lane >> 2);  // this thread's rows: r0, r0 + 8
+
+    int stage = 0, prev = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const WgTileAt q = wg_tile(p, tile);
+      long long row_off[2];
+      bool row_ok[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + 8 * half;
+        const int y = q.y0 + r / p.tw, x = q.x0 + r % p.tw;
+        row_ok[half] = y < p.h && x < p.w;
+        row_off[half] = (((long long)q.b * p.h + y) * p.w + x) * p.co;
+      }
+
+      for (int n0 = q.co0; n0 < q.co_end; n0 += N) {
+        float acc[N / 2];
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+        for (int kt = 0; kt < k_steps; ++kt) {
+          mbar_wait(&full[stage], phase);
+          const uint8_t* a = ring + stage * T::STAGE_BYTES;
+          const uint64_t da = wgmma_desc_sw128(a + cw * 64 * 128);
+          const uint64_t db = wgmma_desc_sw128(a + WG_A_BYTES);
+          wgmma_fence_acc(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < WG_BK / 16; ++k) wgmma_bf16<N>(acc, da + 2 * k, db + 2 * k, 1);
+          wgmma_commit();
+          // this step's products stay in flight; the previous step's are
+          // done, so its stage goes back to the producer
+          wgmma_wait<1>();
+          wgmma_fence_acc(acc);
+          if (kt > 0 && t == 0) mbar_arrive(&empty[prev]);
+          prev = stage;
+          if (++stage == WG_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        wgmma_wait<0>();
+        wgmma_fence_acc(acc);
+        if (t == 0) mbar_arrive(&empty[prev]);
+
+        // accumulator fragment: acc[4j + 2h + e] is row r0 + 8h, column
+        // n0 + 8j + 2(lane % 4) + e
+        const int nb = n0 + 2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          const int col = nb + 8 * j;
+          if (col >= q.co_end) continue;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            if (!row_ok[half]) continue;
+            __nv_bfloat16* o = out + row_off[half] + col;
+            const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+            if (col + 1 < q.co_end) {
+              *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+            } else {
+              o[0] = __float2bfloat16(v0);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // x (b, h, w, ci), k (3, 3, ci, co), out (b, h, w, co): contiguous, on the
@@ -356,4 +513,102 @@ extern "C" int conv3x3_dilated_launch(const void* x, const void* k, void* out, i
                                                    static_cast<__nv_bfloat16*>(out), p);
   }
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda; it is fetched through the CUDA
+// runtime, so the library needs no -lcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 tensor map of `rank` dims (innermost first), 128-byte swizzle, zero
+// fill out of bounds. Returns 0 or 1000 + the CUresult of the refusal.
+int make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+             const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+                            const_cast<void*>(base), dims, strides, box, ones,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+template <int N>
+int launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& kmap, __nv_bfloat16* out,
+                 const WgConv& p, cudaStream_t s) {
+  const int smem = WgTile<N>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_wgmma_kernel<N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = p.tiles < sms ? p.tiles : sms;  // one block per SM (the ring fills it)
+  conv3x3_wgmma_kernel<N><<<blocks, WG_THREADS, smem, s>>>(xmap, kmap, out, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// bf16 x (b, h, w, ci), kt (co, 3, 3, ci) -- the kernel K-major --, out (b,
+// h, w, co): contiguous, on the current device, x and kt 16-byte aligned, ci
+// and co multiples of 8. The M tile is (128 / tw) x tw pixels, tw in {16, 32,
+// 64, 128}; tile_co output channels go to one block, in steps of N = 64 if
+// tile_co <= 64, 128 if tile_co <= 128, else 256. Returns a cudaError_t (0 on
+// success) or 1000 + the CUresult with which a TMA tensor map was refused.
+extern "C" int conv3x3_wgmma_launch(const void* x, const void* kt, void* out, int b, int h,
+                                    int w, int ci, int co, int d, int tile_co, int tw,
+                                    void* stream) {
+  if (b < 1 || h < 1 || w < 1 || ci < 1 || co < 1 || d < 1 || tile_co < 1)
+    return (int)cudaErrorInvalidValue;
+  if (ci % 8 != 0 || co % 8 != 0 || (tw != 16 && tw != 32 && tw != 64 && tw != 128))
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(kt)) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const int n = tile_co <= 64 ? 64 : tile_co <= 128 ? 128 : 256;
+  const int th = WG_BM / tw;
+  const int tiles_w = (w + tw - 1) / tw, tiles_h = (h + th - 1) / th;
+  const int n_groups = (co + tile_co - 1) / tile_co;
+  const long long tiles = (long long)n_groups * tiles_w * tiles_h * b;
+  if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  const WgConv p{h, w, co, d, tile_co, tw, tiles_w, tiles_h, n_groups, (ci + WG_BK - 1) / WG_BK,
+                 (int)tiles};
+
+  const cuuint64_t esz = 2;
+  CUtensorMap xmap, kmap;
+  const cuuint64_t xdims[4] = {(cuuint64_t)ci, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)b};
+  const cuuint64_t xstrides[3] = {esz * ci, esz * ci * w, esz * ci * w * h};
+  const cuuint32_t xbox[4] = {WG_BK, (cuuint32_t)tw, (cuuint32_t)th, 1};
+  int err = make_map(&xmap, x, 4, xdims, xstrides, xbox);
+  if (err != 0) return err;
+  const cuuint64_t kdims[3] = {(cuuint64_t)ci, 9, (cuuint64_t)co};
+  const cuuint64_t kstrides[2] = {esz * ci, esz * ci * 9};
+  const cuuint32_t kbox[3] = {WG_BK, 1, (cuuint32_t)n};
+  err = make_map(&kmap, kt, 3, kdims, kstrides, kbox);
+  if (err != 0) return err;
+
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  if (n == 64) return launch_wgmma<64>(xmap, kmap, o, p, s);
+  if (n == 128) return launch_wgmma<128>(xmap, kmap, o, p, s);
+  return launch_wgmma<256>(xmap, kmap, o, p, s);
 }

@@ -12,31 +12,42 @@
 //
 // Bound on the card: operations. Per sample it does 2*hw^2*(Cf + C) flops on
 // ~hw*(Cf + 2C)*4 bytes, i.e. thousands of flops per byte, far above the H100's
-// ratio. This first version runs in f32 FMA on the CUDA cores (f32 or bf16
-// features, converted on load), so its bound is the f32 SIMT peak; tensor
-// cores (mma/wgmma), TMA and pipelining are later work.
+// ratio. At the main path's shape (16 views, hw = 12288, Cf = 192, C = 21)
+// that is 1.029 TFLOP: 1.04 ms at the bf16 tensor-core peak (989 TFLOP/s),
+// 15.4 ms at the f32 CUDA-core peak (67 TFLOP/s). Two variants, chosen by
+// kernels/pcm_cuda.py:pcm_variant before the launch:
 //
-// Design:
-//   * pcm_inv_norm_kernel: one warp per pixel computes scale_i =
-//     mask_i / (||f_i|| + eps); the main kernel multiplies f by it on load.
-//   * pcm_fused_kernel, grid (hw / BJ, N), 256 threads:
-//       - the fn_j tile (BJ x Cf) is loaded once into shared memory;
-//       - for each row tile i (BI rows), fn_i is staged through shared memory
-//         in K chunks of KC channels and S = fn_i fn_j^T is accumulated in
-//         registers, a 4x4 block per thread (rows ti + 16r, cols tj + 16q,
-//         interleaved so that shared-memory float4 reads do not conflict);
-//       - relu(S) goes to shared memory, next to the cam_i tile extended
-//         with a column of ones (so the column sums come out of the same
-//         product as the propagation);
-//       - acc_j += relu(S)^T [cam_i | 1], each thread holding one column j
+//   * bf16 features (the main path), on the tensor cores:
+//       - pcm_prep_kernel, one warp per pixel: fn = bf16(mask * f / (||f|| +
+//         eps)), zero-padded to a multiple of 64 channels -- the TPU kernel's
+//         rounding rule, which normalizes in f's dtype -- and V =
+//         [cam | 1 | 0 ...], 24 channels, as bf16 hi and lo parts;
+//       - pcm_mma_kernel, the FlashAttention-2 form with j as the query and
+//         neither a running max nor a rescale: see its note below.
+//   * f32 features (the exactness path), f32 FMA on the CUDA cores:
+//       - pcm_inv_norm_kernel: one warp per pixel computes scale_i =
+//         mask_i / (||f_i|| + eps); the main kernel multiplies f by it on load.
+//       - pcm_fused_kernel, grid (hw / BJ, N), 256 threads: the fn_j tile
+//         (BJ x Cf) is loaded once into shared memory; for each row tile i
+//         (BI rows), fn_i is staged through shared memory in K chunks of KC
+//         channels and S = fn_i fn_j^T is accumulated in registers, a 4x4
+//         block per thread (rows ti + 16r, cols tj + 16q, interleaved so that
+//         shared-memory float4 reads do not conflict); relu(S) goes to shared
+//         memory, next to the cam_i tile extended with a column of ones (so
+//         the column sums come out of the same product as the propagation);
+//         acc_j += relu(S)^T [cam_i | 1], each thread holding one column j
 //         and six channels in registers.
-//   * Tails of hw and Cf are bounds-checked and zero-filled; nothing is
-//     padded in device memory. C + 1 must fit in CE channels.
+//   * Tails of hw and Cf are zero-filled; nothing is padded in device memory
+//     but the bf16 variant's own fn and V. C + 1 must fit in 24 channels.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int BJ = 64;         // columns j per block
 constexpr int BI = 64;         // rows i per iteration
@@ -209,6 +220,223 @@ int launch(const float* cam, const T* f, const float* mask, float* scale,
   return (int)cudaGetLastError();
 }
 
+// ---- pcm_mma_kernel: bf16 features on the tensor cores -------------------
+
+constexpr int MJ = 64;       // columns j per block: 4 warps x 16
+constexpr int MI = 64;       // rows i per staged tile
+constexpr int MSTAGES = 3;   // cp.async ring depth
+constexpr int VC = 24;       // V = [cam | 1 | 0 ...]: C <= 23 channels, the ones column, padding
+
+// fn = bf16(mask * f / (||f|| + eps)), zero-padded to cfp channels, and V =
+// [cam | 1 | 0 ...] split into bf16 hi and lo parts (V ~ hi + lo to 2^-16),
+// stored as one row of 2 * VC: hi, then lo. One warp per pixel.
+__global__ void pcm_prep_kernel(const __nv_bfloat16* __restrict__ f,
+                                const float* __restrict__ cam,
+                                const float* __restrict__ mask,
+                                __nv_bfloat16* __restrict__ fn,
+                                __nv_bfloat16* __restrict__ v, long long rows, int cf,
+                                int cfp, int c, float eps) {
+  const long long row = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const __nv_bfloat16* fr = f + row * cf;
+  float ss = 0.f;
+  for (int k = lane; k < cf; k += 32) {
+    const float x = __bfloat162float(fr[k]);
+    ss = fmaf(x, x, ss);
+  }
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  const float den = sqrtf(ss) + eps;
+  const float m = mask != nullptr ? mask[row] : 1.f;
+  __nv_bfloat16* fo = fn + row * cfp;
+  for (int k = lane; k < cfp; k += 32)
+    fo[k] = __float2bfloat16(k < cf ? __bfloat162float(fr[k]) / den * m : 0.f);
+  if (lane < VC) {
+    const float x = lane < c ? cam[row * c + lane] : (lane == c ? 1.f : 0.f);
+    const __nv_bfloat16 hi = __float2bfloat16(x);
+    v[row * 2 * VC + lane] = hi;
+    v[row * 2 * VC + VC + lane] = __float2bfloat16(x - __bfloat162float(hi));
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 h) {
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// relu(a), relu(b) as bf16 hi parts (returned) and lo parts (in `lo`).
+__device__ __forceinline__ uint32_t split_relu_bf16(float a, float b, uint32_t& lo) {
+  a = fmaxf(a, 0.f);
+  b = fmaxf(b, 0.f);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
+  lo = pack_bf16(__floats2bfloat162_rn(a - __low2float(hi), b - __high2float(hi)));
+  return pack_bf16(hi);
+}
+
+// Grid (ceil(hw / 64), n), 4 warps. Warp w owns columns j0 + 16w .. +15 and
+// keeps their fn_j (16 x 16*KS) in registers as mma A fragments. The block
+// walks all rows i in tiles of 64, staged (fn_i and V_i) through a 3-deep
+// cp.async ring; per tile each warp computes S = fn_j fn_i^T (16 x 64) with
+// mma.sync, relu's it in registers, re-packs the f32 accumulators as bf16 A
+// fragments (two n8 accumulator tiles make one k16 fragment) and adds
+// P V_i (16 x 24) into O. Column C of O is the column sum of P, so the
+// epilogue is out_j = O[j, :C] / (O[j, C] + eps).
+//
+// S is exact for the bf16 fn (bf16 products, f32 sums). P V is not: one
+// bf16 rounding of P and of cam errs by up to 2^-8 relative, which a sum
+// over many i averages out but a column with a single contributing pixel
+// does not (0.35% measured on the card at hw = 1, against rtol 0.2%). So P
+// and V are each split into bf16 hi + lo and P V = Phi Vhi + Phi Vlo +
+// Plo Vhi, about 2^-16 relative, for three times the small second product.
+template <int KS>
+__global__ void __launch_bounds__(128)
+pcm_mma_kernel(const __nv_bfloat16* __restrict__ fn, const __nv_bfloat16* __restrict__ v,
+               float* __restrict__ out, int hw, int c, float eps) {
+  constexpr int CFP = 16 * KS;
+  constexpr int FST = CFP + 8;  // fn row stride in shared memory: rows 16 bytes apart in banks
+  constexpr int F_ELEMS = MI * FST;
+  constexpr int STAGE = F_ELEMS + 2 * MI * VC;  // fn_i, then V_i hi and lo
+  extern __shared__ __align__(16) __nv_bfloat16 msm[];
+
+  const int n = blockIdx.y, j0 = blockIdx.x * MJ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const __nv_bfloat16* fb = fn + (size_t)n * hw * CFP;
+  const __nv_bfloat16* vb = v + (size_t)n * hw * 2 * VC;
+
+  // rows r0 .. r0 + 63 of fn (and V) into stage s; rows >= hw are zeros
+  auto load_tile = [=](int s, int r0, bool with_v) {
+    __nv_bfloat16* fs = msm + s * STAGE;
+    for (int e = tid; e < MI * (CFP / 8); e += 128) {
+      const int r = e / (CFP / 8), q = e - r * (CFP / 8);
+      const bool ok = r0 + r < hw;
+      cp_async16(fs + r * FST + q * 8, ok ? fb + (size_t)(r0 + r) * CFP + q * 8 : fb, ok);
+    }
+    if (with_v) {  // global row [hi | lo] -> shared tiles hi (MI x VC), then lo
+      __nv_bfloat16* vs = fs + F_ELEMS;
+      for (int e = tid; e < MI * (2 * VC / 8); e += 128) {
+        const int r = e / (2 * VC / 8), q = e - r * (2 * VC / 8);
+        const int part = q / (VC / 8), qq = q - part * (VC / 8);
+        const bool ok = r0 + r < hw;
+        cp_async16(vs + part * MI * VC + r * VC + qq * 8,
+                   ok ? vb + (size_t)(r0 + r) * 2 * VC + q * 8 : vb, ok);
+      }
+    }
+  };
+
+  // fn_j -> registers
+  uint32_t af[KS][4];
+  load_tile(0, j0, false);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    ldsm_x4(af[ks], msm + (warp * 16 + (lane & 15)) * FST + ks * 16 + (lane >> 4) * 8);
+  __syncthreads();
+
+  const int n_tiles = (hw + MI - 1) / MI;
+#pragma unroll
+  for (int s = 0; s < MSTAGES - 1; ++s) {
+    if (s < n_tiles) load_tile(s, s * MI, true);
+    cp_async_commit();
+  }
+
+  float o[3][4];
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[q][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<MSTAGES - 2>();
+    __syncthreads();  // tile it has landed; the stage of tile it - 1 is free
+    const int nx = it + MSTAGES - 1;
+    if (nx < n_tiles) load_tile(nx % MSTAGES, nx * MI, true);
+    cp_async_commit();
+
+    const __nv_bfloat16* fs = msm + (it % MSTAGES) * STAGE;
+    const __nv_bfloat16* vs = fs + F_ELEMS;  // hi; lo follows at + MI * VC
+    float s_acc[8][4];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_acc[q][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t r[4];  // rows i = 16np .. 16np + 15, channels 16ks .. 16ks + 15
+        ldsm_x4(r, fs + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * FST + ks * 16 +
+                       ((lane >> 3) & 1) * 8);
+        mma_bf16(s_acc[2 * np], af[ks], r[0], r[1]);
+        mma_bf16(s_acc[2 * np + 1], af[ks], r[2], r[3]);
+      }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // rows i = 16kk .. 16kk + 15
+      uint32_t p_hi[4], p_lo[4];
+      p_hi[0] = split_relu_bf16(s_acc[2 * kk][0], s_acc[2 * kk][1], p_lo[0]);
+      p_hi[1] = split_relu_bf16(s_acc[2 * kk][2], s_acc[2 * kk][3], p_lo[1]);
+      p_hi[2] = split_relu_bf16(s_acc[2 * kk + 1][0], s_acc[2 * kk + 1][1], p_lo[2]);
+      p_hi[3] = split_relu_bf16(s_acc[2 * kk + 1][2], s_acc[2 * kk + 1][3], p_lo[3]);
+      const int vr = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {  // V hi, then V lo
+        const __nv_bfloat16* vp = vs + part * MI * VC + vr * VC;
+        uint32_t b01[4], b2[2];
+        ldsm_x4_trans(b01, vp + (lane >> 4) * 8);  // channels 0 .. 15
+        ldsm_x2_trans(b2, vp + 16);                // channels 16 .. 23
+        mma_bf16(o[0], p_hi, b01[0], b01[1]);
+        mma_bf16(o[1], p_hi, b01[2], b01[3]);
+        mma_bf16(o[2], p_hi, b2[0], b2[1]);
+        if (part == 0) {
+          mma_bf16(o[0], p_lo, b01[0], b01[1]);
+          mma_bf16(o[1], p_lo, b01[2], b01[3]);
+          mma_bf16(o[2], p_lo, b2[0], b2[1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // o[q][e]: row g + 8 (e / 2), channel 8q + 2 (lane % 4) + e % 2. The
+  // column sum (channel c) sits in lane 4g + (c % 8) / 2 of each quad.
+  const int g = lane >> 2, t4 = lane & 3;
+  // selects, not o[c / 8][...]: a runtime index would put o in local memory
+  const bool odd = c & 1;
+  const int cq = c >> 3;
+  const float e0[3] = {odd ? o[0][1] : o[0][0], odd ? o[1][1] : o[1][0], odd ? o[2][1] : o[2][0]};
+  const float e1[3] = {odd ? o[0][3] : o[0][2], odd ? o[1][3] : o[1][2], odd ? o[2][3] : o[2][2]};
+  float d0 = cq == 0 ? e0[0] : (cq == 1 ? e0[1] : e0[2]);
+  float d1 = cq == 0 ? e1[0] : (cq == 1 ? e1[1] : e1[2]);
+  const int src = (lane & ~3) | ((c & 7) >> 1);
+  d0 = __shfl_sync(0xffffffffu, d0, src) + eps;
+  d1 = __shfl_sync(0xffffffffu, d1, src) + eps;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = j0 + warp * 16 + g + 8 * h;
+    if (j >= hw) continue;
+    const float den = h ? d1 : d0;
+    float* ob = out + ((size_t)n * hw + j) * c;
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ch = 8 * q + 2 * t4 + e;
+        if (ch < c) ob[ch] = o[q][2 * h + e] / den;
+      }
+  }
+}
+
+template <int KS>
+int launch_mma(const __nv_bfloat16* fn, const __nv_bfloat16* v, float* out, int n, int hw,
+               int c, float eps, cudaStream_t s) {
+  const size_t smem = sizeof(__nv_bfloat16) * MSTAGES * (MI * (16 * KS + 8) + 2 * MI * VC);
+  cudaError_t err = cudaFuncSetAttribute(pcm_mma_kernel<KS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  pcm_mma_kernel<KS><<<dim3((hw + MJ - 1) / MJ, n), 128, smem, s>>>(fn, v, out, hw, c, eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // cam (n, hw, c) f32; f (n, hw, cf) f32 or bf16 (f_is_bf16); mask (n, hw) f32
@@ -226,4 +454,31 @@ extern "C" int pcm_fused_launch(const float* cam, const void* f, int f_is_bf16,
                   hw, c, cf, eps, s);
   return launch(cam, static_cast<const float*>(f), mask, scale, out, n, hw, c,
                 cf, eps, s);
+}
+
+// The tensor-core variant, bf16 features: cam (n, hw, c) f32; f (n, hw, cf)
+// bf16; mask (n, hw) f32 or null; fn (n, hw, cfp) and v (n, hw, 48) bf16
+// scratch, cfp = cf rounded up to 64 (64 .. 256); out (n, hw, c) f32. All
+// contiguous, on the current device, fn and v 16-byte aligned. Returns a
+// cudaError_t (0 on success).
+extern "C" int pcm_mma_launch(const float* cam, const void* f, const float* mask, void* fn,
+                              void* v, float* out, int n, int hw, int c, int cf, int cfp,
+                              float eps, void* stream) {
+  if (n < 1 || hw < 1 || cf < 1 || c < 1 || c > VC - 1 || n > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (cfp % 64 != 0 || cfp < cf || cfp > 256) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const long long rows = (long long)n * hw;
+  auto* fnb = static_cast<__nv_bfloat16*>(fn);
+  auto* vb = static_cast<__nv_bfloat16*>(v);
+  pcm_prep_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(f), cam, mask, fnb, vb, rows, cf, cfp, c, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  switch (cfp / 64) {
+    case 1: return launch_mma<4>(fnb, vb, out, n, hw, c, eps, s);
+    case 2: return launch_mma<8>(fnb, vb, out, n, hw, c, eps, s);
+    case 3: return launch_mma<12>(fnb, vb, out, n, hw, c, eps, s);
+    default: return launch_mma<16>(fnb, vb, out, n, hw, c, eps, s);
+  }
 }

@@ -33,7 +33,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
   9. training at working size: crop 448, low_res 128, batch 8, in f32 and in
      bf16: ms/step, images/s, peak memory, and one profiled step;
  10. the training CLI on a synthetic VOC root: one epoch with a per-epoch
-     train state, then a --resume'd second epoch.
+     train state, then a --resume'd second epoch;
+ 11. stage-2 parity: the full-width AffinityNet on the card (f32, TF32 off)
+     against the same weights on the CPU: pair affinities and refined walk
+     scores (refine_batch's path, 2 images in a 128x128 bucket, logt 6),
+     argmax masks equal except at near-ties; one make_aff_train_step step
+     (crop 64, batch 2, dropout off);
+ 12. random-walk inference at working size: RandomWalkRefiner.refine_batch
+     on 96 images at 384x512 (the CLI's default chunk) in f32: images/s,
+     peak memory, a per-stage breakdown (trunk, pair affinities, dense
+     matrix, walk) and a profiled batch; then the bf16 chain's time and its
+     argmax agreement with f32;
+ 13. AffinityNet training at working size: crop 448, batch 8, f32 (TF32
+     off): ms/step, images/s, peak memory, a profiled step;
+ 14. the stage-2 CLI chain on a synthetic VOC root from random weights:
+     contrast_infer --out_cam --out_crf, aff_prepare (5 alphas, host seconds
+     per image), aff_train (1 epoch, then a --resume'd epoch, from a
+     contrast state_dict), aff_infer; every png is checked.
+Stage 2 runs no kernel of the port (its pair affinities, dense matrix and
+walk are plain PyTorch, as they are plain XLA in the JAX package).
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit; the last line is {"ok": true, "device": {...}}.
 Weights are random, from a seed; nothing is downloaded.
@@ -57,6 +75,7 @@ from wseg_tpu_torch.kernels import _build, conv_cuda, pcm_cuda
 from wseg_tpu_torch.models import build_model
 from wseg_tpu_torch.models.layers import Dropout2d
 from wseg_tpu_torch.ops.conv import conv3x3_dilated_plain
+from wseg_tpu_torch.ops.pairs import pairwise_affinity_sliced
 from wseg_tpu_torch.ops.pcm import pcm_flat, pcm_flat_bf16
 from wseg_tpu_torch.train.contrast import make_train_step
 from wseg_tpu_torch.train.optim import PolySGD, param_groups
@@ -614,6 +633,316 @@ def phase_train_cli(card: str):
           f"in {dt:.1f} s; contrast.pth loads with load_weights ({len(sd)} tensors)", flush=True)
     shutil.rmtree(BUILD_SCRATCH, ignore_errors=True)
 
+def within(got: torch.Tensor, want: torch.Tensor, rtol: float, atol_of_max: float) -> float:
+    """The largest |got - want| / (atol + rtol |want|), atol = atol_of_max x
+    max |want|: at most 1 when within the tolerance."""
+    atol = atol_of_max * float(want.abs().max())
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def stage2_items(rng, n: int, sizes, n_cams: int | None = None):
+    """n (normalised image (H, W, 3), cam (H, W, 21) with bg 0.27) pairs of
+    the given sizes (cycled); with n_cams, only that many distinct cams."""
+    items, cams = [], {}
+    for i in range(n):
+        h, w = sizes[i % len(sizes)]
+        key = (i % n_cams if n_cams else i, h, w)
+        if key not in cams:
+            cam = rng.random((h, w, 21), dtype=np.float32)
+            cam[..., 0] = 0.27
+            cams[key] = cam
+        items.append((rng.standard_normal((h, w, 3), dtype=np.float32), cams[key]))
+    return items
+
+
+def aff_targets(rng, n: int, size: int):
+    """(bg_pos, fg_pos, neg) of n random label maps at a size x size grid."""
+    from wseg_tpu_torch.data.affinity_labels import ExtractAffinityLabelInRadius
+
+    extract = ExtractAffinityLabelInRadius(size)
+    labs = [extract(rng.choice(np.array([0, 5, 12, 255], np.uint8), size=(size, size),
+                               p=[0.4, 0.25, 0.2, 0.15])) for _ in range(n)]
+    return tuple(torch.from_numpy(np.stack([lab[k] for lab in labs])) for k in range(3))
+
+
+def spread_affinities(model):
+    """Scale f9 by 0.01: at random init the f9 features are large (mean |f|
+    ~ 230), every pair affinity underflows to 0, the walk is the identity
+    and the training losses have no gradient; scaled, the affinities spread
+    over about (0.1, 0.5), as a trained net's do."""
+    with torch.no_grad():
+        model.f9.weight.mul_(0.01)
+    return model
+
+
+def phase_stage2_parity():
+    """AffinityNet on the card vs the CPU, same weights: pair affinities,
+    refined walk scores and masks; one training step."""
+    from wseg_tpu_torch.infer.rw import RandomWalkRefiner
+    from wseg_tpu_torch.train.affinity import make_aff_train_step
+
+    models = {dev: spread_affinities(build_model(
+        "affinity", device=dev, generator=torch.Generator().manual_seed(SEED)).eval())
+              for dev in ("cpu", "cuda")}
+    rng = np.random.default_rng(SEED + 6)
+    items = stage2_items(rng, 2, [(120, 128), (128, 100)])
+    out = {}
+    for dev, model in models.items():
+        refiner = RandomWalkRefiner(model, logt=6)
+        imgs, cams = refiner.pad(items)
+        with torch.inference_mode():
+            aff = model(imgs)
+        scores = refiner.walk_scores(imgs, cams)
+        bf16 = RandomWalkRefiner(model, logt=6, walk_dtype=torch.bfloat16).walk_scores(imgs, cams)
+        out[dev] = (aff.cpu(), scores.cpu(), refiner.refine_batch(items), bf16.cpu())
+    (aff_c, sc_c, masks_c, bf_c), (aff_g, sc_g, masks_g, bf_g) = out["cpu"], out["cuda"]
+    # the bf16 chain (f32 accumulation pinned on the card) against the CPU's,
+    # at the CPU tests' bound against the JAX package's bf16 chain
+    bf_err = float((bf_g - bf_c).abs().max() / bf_c.abs().max())
+    bf_agree = float((bf_g.argmax(1) == bf_c.argmax(1)).float().mean())
+    aff_err, sc_err = within(aff_g, aff_c, 1e-4, 1e-5), within(sc_g, sc_c, 1e-4, 1e-5)
+    top2 = sc_c.topk(2, dim=1).values
+    near = (top2[:, 0] - top2[:, 1] < 1e-4).numpy()
+    flips = 0
+    for j, (mc, mg) in enumerate(zip(masks_c, masks_g)):
+        h, w = mc.shape
+        flips += int(((mc != mg) & ~near[j, :h, :w]).sum())
+    print(f"[stage2-parity] AffinityNet 2 x 128x128 bucket, card (f32, TF32 off) vs CPU: pair "
+          f"affinities {tuple(aff_g.shape)} error {aff_err:.3e} of the tolerance, walk scores "
+          f"{tuple(sc_g.shape)} (logt 6) {sc_err:.3e} of the tolerance (rtol 1e-4, atol 1e-5 x "
+          f"max); mask pixels differing outside near-ties (top-2 margin < 1e-4): {flips} "
+          f"(near-ties {int(near.sum())}); the bf16 chain: max difference {bf_err:.3e} of the "
+          f"scores' max (bound 2^-7; a bf16 reduction over hw = 256 would be far above it), "
+          f"argmax agreement {100 * bf_agree:.3f}% (reported, not gated)", flush=True)
+    if aff_err > 1 or sc_err > 1 or flips or bf_err > 2.0 ** -7:
+        raise SystemExit("chip_smoke: stage-2 inference on the card disagrees with the CPU")
+
+    n, crop = 2, 64
+    img = torch.from_numpy(rng.standard_normal((n, 3, crop, crop), dtype=np.float32))
+    labels = aff_targets(rng, n, crop // 8)
+    targets = ["f9.weight", "f8_5.weight", "f8_3.weight", "b7.conv_branch2a.weight",
+               "b3.conv_branch2a.weight"]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = spread_affinities(build_model("affinity", device=dev,
+                                              generator=torch.Generator().manual_seed(SEED)))
+        disable_dropout(model)
+        named = dict(model.named_parameters())
+        opt = PolySGD(param_groups(model), 0.01, 5e-4, 100)
+        mets = make_aff_train_step(model, opt)(img.to(dev), *(t.to(dev) for t in labels))
+        runs[dev] = ({k: float(v) for k, v in mets.items()},
+                     {k: named[k].detach().cpu() for k in targets},
+                     {k: named[k].grad.cpu() for k in targets})
+    (m_c, p_c, g_c), (m_g, p_g, g_g) = runs["cpu"], runs["cuda"]
+    loss_err = max(abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in m_c)
+    param_err = max(rel_err(p_g[k], p_c[k]) for k in targets)
+    grad_err = max(rel_err(g_g[k], g_c[k]) for k in targets)
+    print(f"[stage2-parity] make_aff_train_step crop {crop} batch {n}, card vs CPU: losses max "
+          f"rel err {loss_err:.3e} ({', '.join(f'{k} {v:.5f}' for k, v in m_g.items())}); "
+          f"params {param_err:.3e}; gradients {grad_err:.3e} (reported, not gated)", flush=True)
+    if loss_err > TRAIN_RTOL or param_err > TRAIN_RTOL:
+        raise SystemExit("chip_smoke: the stage-2 training step on the card disagrees with the CPU")
+    torch.cuda.empty_cache()
+
+
+def print_top(card: str, totals: dict, k: int = 12):
+    busy = sum(totals.values())
+    for name, v in sorted(totals.items(), key=lambda kv: -kv[1])[:k]:
+        print(f"{card} |   {v:9.2f} ms {100 * v / busy:5.1f}%  {name[:100]}")
+
+
+def phase_rw_working_size(card: str):
+    """refine_batch at the CLI's default chunk: 96 images at 384x512, with
+    cuDNN autotuned as in the aff_infer CLI."""
+    torch.backends.cudnn.benchmark = True
+    from wseg_tpu_torch.infer.rw import MAX_WALK_PX, RandomWalkRefiner
+    from wseg_tpu_torch.models.affinity import clamped_radius
+    from wseg_tpu_torch.ops.pairs import dense_affinity_matrix, pair_index_tensors
+    from wseg_tpu_torch.ops.random_walk import random_walk_refine
+
+    model = spread_affinities(
+        build_model("affinity", generator=torch.Generator().manual_seed(SEED)).eval())
+    refiner = RandomWalkRefiner(model, logt=6)
+    n = refiner.chunk_size(H0, W0)
+    if n != MAX_WALK_PX // (H0 * W0) or n != 96:
+        raise SystemExit(f"chip_smoke: expected a chunk of 96 at {H0}x{W0}, got {n}")
+    items = stage2_items(np.random.default_rng(SEED + 7), n, [(H0, W0)], n_cams=8)
+
+    refiner.refine_batch(items)  # warm-up (cuDNN autotune)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        masks = refiner.refine_batch(items)
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    for (im, _), m in zip(items, masks):
+        if m.dtype != np.uint8 or m.shape != im.shape[:2] or m.max() > 20:
+            raise SystemExit("chip_smoke: a refined mask has the wrong type, shape or range")
+    print(f"{card} | random walk refine_batch {n} x {H0}x{W0} f32 (TF32 off), logt 6: "
+          + ", ".join(f"{t * 1e3:.1f} ms ({n / t:.2f} images/s)" for t in times)
+          + f" (2 batches after 1 warm-up; host padding and copies included); peak device "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+
+    # where the time goes: each stage of walk_scores on the same padded batch
+    imgs, cams = refiner.pad(items)
+    h8, w8 = H0 // 8, W0 // 8
+    radius = clamped_radius(h8, w8, model.radius)
+    with torch.inference_mode():
+        f = model.features(imgs)
+        aff = model(imgs)
+        ind = pair_index_tensors(radius, (h8, w8), imgs.device)
+        mat = dense_affinity_matrix(aff, *ind, h8 * w8)
+        stages = {
+            "trunk + heads (features)": lambda: model.features(imgs),
+            "pair affinities (sliced)": lambda: pairwise_affinity_sliced(f, radius),
+            "dense matrix (scatter)": lambda: dense_affinity_matrix(aff, *ind, h8 * w8),
+            "walk (power, 6 squarings, propagate, upsample)":
+                lambda: random_walk_refine(cams, mat, logt=6),
+            "the same walk with the bf16 chain":
+                lambda: random_walk_refine(cams, mat, logt=6, compute_dtype=torch.bfloat16),
+        }
+        ms = {k: cuda_ms(fn, iters=1, warmup=1) for k, fn in stages.items()}
+    total = sum(v for k, v in ms.items() if "bf16" not in k)
+    walk_flops = n * (6 * 2.0 * (h8 * w8) ** 3)
+    print(f"{card} | stages at {n} x {H0}x{W0} (CUDA events, 1 run each after 1 warm-up; "
+          f"shares of the f32 path): "
+          + "; ".join(f"{k} {v:.1f} ms ({100 * v / total:.1f}%)" for k, v in ms.items())
+          + f"; the walk's squarings are {walk_flops / 1e12:.1f} TFLOP", flush=True)
+    del f, aff, mat, imgs, cams
+    torch.cuda.empty_cache()
+
+    totals = profile_kernels(lambda: refiner.refine_batch(items))
+    print(f"{card} | profiled refine_batch: device busy {sum(totals.values()):.1f} ms; top "
+          f"kernels:")
+    print_top(card, totals)
+
+    bf16 = RandomWalkRefiner(model, logt=6, walk_dtype=torch.bfloat16)
+    bf16.refine_batch(items)  # warm-up
+    t0 = time.perf_counter()
+    masks_bf16 = bf16.refine_batch(items)
+    dt = time.perf_counter() - t0
+    agree = np.mean([float((a == b).mean()) for a, b in zip(masks, masks_bf16)])
+    print(f"{card} | the same batch with the bf16 squaring chain: {dt * 1e3:.1f} ms "
+          f"({n / dt:.2f} images/s); argmax agreement with f32 {100 * agree:.3f}% of pixels",
+          flush=True)
+    del model, refiner, bf16
+    torch.cuda.empty_cache()
+
+
+def phase_aff_train_working_size(card: str):
+    """AffinityNet training at the CLI's defaults: crop 448, batch 8, f32,
+    cuDNN autotuned as in the aff_train CLI."""
+    from wseg_tpu_torch.train.affinity import make_aff_train_step
+
+    n, crop = 8, 448
+    model = spread_affinities(build_model("affinity",
+                                          generator=torch.Generator().manual_seed(SEED)))
+    rng = np.random.default_rng(SEED + 8)
+    img = torch.from_numpy(rng.standard_normal((n, 3, crop, crop), dtype=np.float32)).cuda()
+    img = img.contiguous(memory_format=torch.channels_last)
+    labels = tuple(t.cuda() for t in aff_targets(rng, n, crop // 8))
+    opt = PolySGD(param_groups(model), 0.01, 5e-4, 1000)
+    step = make_aff_train_step(model, opt,
+                               generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.backends.cudnn.benchmark = True  # as the aff_train CLI
+    mets = step(img, *labels)  # warm-up (cuDNN autotune)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = 3
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        mets = step(img, *labels)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / timed
+    peak = torch.cuda.max_memory_allocated()
+    vals = {k: float(v) for k, v in mets.items()}
+    print(f"{card} | AffinityNet train step crop {crop} batch {n} f32 (TF32 off): "
+          f"{dt * 1e3:.1f} ms/step, {n / dt:.2f} images/s (mean of {timed} steps after 1 "
+          f"warm-up), peak device memory {peak / 2**30:.2f} GiB; last losses "
+          + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()), flush=True)
+    if not all(np.isfinite(v) for v in vals.values()):
+        raise SystemExit("chip_smoke: non-finite AffinityNet training loss")
+    totals = profile_kernels(lambda: step(img, *labels))
+    print(f"{card} | profiled AffinityNet train step: device busy {sum(totals.values()):.1f} ms; "
+          f"top kernels:")
+    print_top(card, totals)
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
+def check_pngs(folder: Path, names, sizes, what: str):
+    from PIL import Image
+
+    for name, (h, w) in zip(names, sizes):
+        arr = np.asarray(Image.open(folder / f"{name}.png"))
+        if arr.dtype != np.uint8 or arr.shape != (h, w) or arr.max() > 20:
+            raise SystemExit(f"chip_smoke: {what} png {name}: {arr.dtype} {arr.shape} "
+                             f"max {arr.max()}")
+
+
+def phase_stage2_cli(card: str):
+    """contrast_infer --out_cam --out_crf -> aff_prepare -> aff_train (1
+    epoch + a resumed one) -> aff_infer on a synthetic VOC root."""
+    from PIL import Image
+
+    from wseg_tpu_torch.cli import aff_infer, aff_prepare, aff_train, contrast_infer
+    from wseg_tpu_torch.utils.checkpoint import load_weights, save_weights
+
+    base = BUILD_SCRATCH / "stage2"
+    shutil.rmtree(base, ignore_errors=True)
+    root, lst = make_voc(base / "VOC2012")
+    names = Path(lst).read_text().split()
+    sizes = [Image.open(Path(root) / "JPEGImages" / f"{nm}.jpg").size[::-1] for nm in names]
+    contrast_pth = str(base / "contrast.pth")
+    save_weights(contrast_pth, build_model("contrast", device="cpu",
+                                           generator=torch.Generator().manual_seed(SEED)))
+    t = {}
+    cwd = os.getcwd()
+    os.chdir(base)
+    try:
+        t0 = time.perf_counter()
+        contrast_infer.main(["--weights", contrast_pth, "--infer_list", lst, "--voc12_root", root,
+                             "--out_cam", "cam", "--out_crf", "crf_png"])
+        t["contrast_infer --out_cam --out_crf"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        aff_prepare.main(["--infer_list", lst, "--voc12_root", root, "--cam_dir", "cam",
+                          "--out_crf", "crf"])
+        t_prep = time.perf_counter() - t0
+        t["aff_prepare (5 alphas)"] = t_prep
+        common = ["--train_list", lst, "--voc12_root", root, "--batch_size", "2",
+                  "--num_workers", "2", "--la_crf_dir", "crf/4.00", "--ha_crf_dir",
+                  "crf/24.00", "--weights", contrast_pth, "--session_name", "smoke"]
+        t0 = time.perf_counter()
+        aff_train.main(common + ["--max_epoches", "1", "--save_every_epoch"])
+        aff_train.main(common + ["--max_epoches", "2", "--start_epoch", "1", "--resume",
+                                 "result/smoke/aff_train.pth"])
+        t["aff_train (1 epoch + a resumed epoch)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        aff_infer.main(["--weights", "result/smoke/aff.pth", "--infer_list", lst,
+                        "--voc12_root", root, "--cam_dir", "cam", "--out_rw", "rw"])
+        t["aff_infer"] = time.perf_counter() - t0
+        sd = load_weights("result/smoke/aff.pth")
+    finally:
+        os.chdir(cwd)
+    build_model("affinity", device="cpu").load_state_dict(sd, strict=True)
+    if not all(bool(torch.isfinite(v).all()) for v in sd.values()):
+        raise SystemExit("chip_smoke: non-finite AffinityNet weights after aff_train")
+    check_pngs(base / "crf_png", names, sizes, "contrast_infer --out_crf")
+    check_pngs(base / "rw", names, sizes, "aff_infer")
+    for alpha in ("4.00", "8.00", "16.00", "24.00", "32.00"):
+        for name, (h, w) in zip(names, sizes):
+            arr = np.load(base / "crf" / alpha / f"{name}.npy")
+            if arr.shape != (21, h, w) or not np.isfinite(arr).all():
+                raise SystemExit(f"chip_smoke: aff_prepare {alpha}/{name}: {arr.shape}")
+    px = sum(h * w for h, w in sizes)
+    print(f"{card} | stage-2 CLI chain on {len(names)} synthetic images ({px / len(names):.0f} "
+          f"px each): " + "; ".join(f"{k} {v:.1f} s" for k, v in t.items())
+          + f"; aff_prepare host {t_prep / len(names):.3f} s per image (5 alphas, "
+          f"{os.cpu_count()} cores, native CRF {px / len(names) / 1e6:.3f} MP)", flush=True)
+    shutil.rmtree(base, ignore_errors=True)
+
 
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -628,6 +957,10 @@ def main() -> int:
     phase_train_parity()
     phase_train_working_size(card)
     phase_train_cli(card)
+    phase_stage2_parity()
+    phase_rw_working_size(card)
+    phase_aff_train_working_size(card)
+    phase_stage2_cli(card)
     print(json.dumps({"kernels": [pcm_row, conv_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -177,8 +177,10 @@ def test_cli_rejects_crf_and_missing_gpu(tmp_path):
     from wseg_tpu_torch.cli import contrast_infer
     from wseg_tpu_torch.models import build_model
 
+    # the accelerator CRF is not ported: it raises, with no native fallback
     with pytest.raises(NotImplementedError, match="stage 2"):
-        contrast_infer.main(["--weights", "w.pth", "--out_crf", str(tmp_path), "--device", "cpu"])
+        contrast_infer.main(["--weights", "w.pth", "--out_crf", str(tmp_path), "--device", "cpu",
+                             "--crf_backend", "tpu"])
     if not torch.cuda.is_available():  # the default device is the GPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model("contrast")

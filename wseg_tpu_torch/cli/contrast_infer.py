@@ -1,8 +1,10 @@
 """MSF + flip CAM inference CLI (counterpart of wseg_tpu/cli/contrast_infer.py,
 flag-compatible with the reference `contrast_infer.py`).
 
-Writes per image: `--out_cam` {cls: cam}.npy dicts and `--out_cam_pred`
-argmax pngs with a constant bg score. Runs on the GPU unless `--device cpu`.
+Writes per image: `--out_cam` {cls: cam}.npy dicts, `--out_cam_pred`
+argmax pngs with a constant bg score and `--out_crf` CRF'd argmax pngs (the
+host's native CRF, on `--num_workers` threads beside the device work). Runs
+on the GPU unless `--device cpu`.
 
     python -m wseg_tpu_torch.cli.contrast_infer --weights W.pth|W.ckpt \\
         --infer_list voc12/train.txt --voc12_root VOC2012 --out_cam out_cam
@@ -38,18 +40,18 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", type=str)
     args = parser.parse_args(argv)
 
-    if args.out_crf is not None:
-        raise NotImplementedError("--out_crf is not ported yet (ROADMAP stage 2); "
-                                  "use wseg_tpu.cli.contrast_infer for CRF labels")
+    import os
 
     import numpy as np
 
-    from wseg_tpu_torch.data.voc12 import VOC12ClsDatasetMSF
+    from wseg_tpu_torch.data.voc12 import VOC12ClsDatasetMSF, get_img_path
     from wseg_tpu_torch.infer.cam import CamInferencer, save_cam_dict, save_cam_pred
+    from wseg_tpu_torch.infer.crf_post import check_backend, crf_from_cam_dict
     from wseg_tpu_torch.models import build_model
     from wseg_tpu_torch.utils.checkpoint import load_weights
     from wseg_tpu_torch.utils.logging import Timer
 
+    check_backend(args.crf_backend)
     model = build_model(args.network, device=args.device)
     model.load_state_dict(load_weights(args.weights), strict=True)
 
@@ -64,15 +66,26 @@ def main(argv=None):
             return name, np.array(dataset.load_image(idx)), dataset.label_list[idx], None
         return dataset[idx]
 
+    crf_futures = []
+
     def write_outputs(name, norm_cam, label):
         if args.out_cam is not None:
-            save_cam_dict(args.out_cam, name, norm_cam, label)
+            cam_dict = save_cam_dict(args.out_cam, name, norm_cam, label)
+        else:
+            cam_dict = {i: norm_cam[i] for i in range(20) if label[i] > 1e-5}
         if args.out_cam_pred is not None:
             save_cam_pred(args.out_cam_pred, name, norm_cam, args.out_cam_pred_alpha)
+        if args.out_crf is not None:
+            crf_futures.append(crf_pool.submit(
+                crf_from_cam_dict, cam_dict, get_img_path(name, args.voc12_root),
+                os.path.join(args.out_crf, name + ".png"), t=args.crf_iters,
+                backend=args.crf_backend))
 
     # host-side decode and view scaling run ahead of the device work in a
-    # bounded window of threads (PIL releases the GIL)
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    # bounded window of threads (PIL releases the GIL); the native CRF runs on
+    # its own pool (it releases the GIL too)
+    with ThreadPoolExecutor(max_workers=4) as pool, \
+            ThreadPoolExecutor(max_workers=max(args.num_workers, 1)) as crf_pool:
         window = max(4, batch_size)
         pending = deque(pool.submit(prepare, i) for i in range(min(window, len(dataset))))
         done = 0
@@ -98,6 +111,8 @@ def main(argv=None):
             if done % 50 < len(chunk):
                 timer.update_progress(done / len(dataset))
                 print(f"{done}/{len(dataset)} imgs, fin: {timer.str_est_finish()}", flush=True)
+        for f in crf_futures:
+            f.result()
     print("done")
 
 

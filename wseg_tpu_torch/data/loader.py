@@ -20,17 +20,25 @@ import torch
 PREFETCH = 4  # batches in flight
 
 
+def collate(samples):
+    """Stack tuple elements: numpy arrays with np.stack, the rest as lists."""
+    return tuple(np.stack(col) if isinstance(col[0], np.ndarray) else list(col)
+                 for col in zip(*samples))
+
+
 class DataLoader:
     """Shuffled batches of `batch_size` (the last partial batch is dropped),
-    each the stacked items of the dataset, fetched `num_workers` at a time."""
+    each the dataset's items combined by `collate`, fetched `num_workers` at
+    a time."""
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 8, seed: int = 1,
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, collate=collate):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = num_workers
         self.seed = seed
         self.pin_memory = pin_memory
+        self.collate = collate
         self._rng = random.Random(seed)
         self._epoch = None
 
@@ -47,7 +55,7 @@ class DataLoader:
         return len(self.dataset) // self.batch_size
 
     def _fetch(self, idxs):
-        batch = collate([self.dataset[i] for i in idxs])
+        batch = self.collate([self.dataset[i] for i in idxs])
         if self.pin_memory:
             batch = tuple(torch.from_numpy(c).pin_memory() if isinstance(c, np.ndarray) else c
                           for c in batch)
@@ -69,9 +77,3 @@ class DataLoader:
                 if b is not None:
                     pending.append(pool.submit(self._fetch, b))
                 yield fut.result()
-
-
-def collate(samples):
-    """Stack tuple elements: numpy arrays with np.stack, the rest as lists."""
-    return tuple(np.stack(col) if isinstance(col[0], np.ndarray) else list(col)
-                 for col in zip(*samples))

@@ -157,3 +157,19 @@ class RandomCrop:
 
     def __call__(self, arr: np.ndarray, rng=None) -> np.ndarray:
         return self.apply(arr, self.get_box(*arr.shape[:2], rng))
+
+
+class AvgPool2d:
+    """Non-overlapping k x k mean of an HWC array, zero-padded up to
+    multiples of k first (tool/imutils.py:130-138, skimage's block_reduce)."""
+
+    def __init__(self, ksize: int):
+        self.ksize = ksize
+
+    def __call__(self, img: np.ndarray) -> np.ndarray:
+        k = self.ksize
+        h, w = img.shape[:2]
+        if h % k or w % k:
+            img = np.pad(img, ((0, -h % k), (0, -w % k), (0, 0)), mode="constant")
+            h, w = img.shape[:2]
+        return img.reshape(h // k, k, w // k, k, -1).mean(axis=(1, 3))

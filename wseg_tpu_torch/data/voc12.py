@@ -1,6 +1,7 @@
 """PASCAL VOC 2012 lists, image-level labels, the classification and stage-1
-training datasets and the multi-scale + flip inference dataset (counterpart
-of those parts of wseg_tpu/data/voc12.py).
+training datasets, the multi-scale + flip inference dataset and the
+AffinityNet training dataset (counterpart of those parts of
+wseg_tpu/data/voc12.py).
 
 Labels come from an explicit cls_labels.npy, a cached one next to the VOC
 root (or the repo's voc12/), or the XML annotations, then cached. PIL is
@@ -165,3 +166,80 @@ class VOC12ClsDatasetMSF:
         img = self.load_image(idx)
         views = [self.normalize(v) for v in T.msf_views(img, self.scales, self.unit)]
         return self.img_name_list[idx], views, self.label_list[idx], (img.size[1], img.size[0])
+
+
+class VOC12AffDataset:
+    """AffinityNet training samples (voc12/data.py:201-261): image + the
+    fused low/high-alpha CRF pseudo label -> joint augmentation -> 8x pooled
+    label -> radius-pair affinity targets. Items are (HWC float32 crop,
+    (bg_pos, fg_pos, neg)).
+
+    det_seed and set_epoch: as ContrastTrainDataset."""
+
+    def __init__(self, img_name_list_path, label_la_dir, label_ha_dir, voc12_root,
+                 cropsize=448, radius=5, det_seed: int | None = None):
+        from wseg_tpu_torch.data.affinity_labels import ExtractAffinityLabelInRadius
+
+        self.img_name_list = load_img_name_list(img_name_list_path)
+        self.voc12_root = voc12_root
+        self.label_la_dir = label_la_dir
+        self.label_ha_dir = label_ha_dir
+        self.jitter = T.ColorJitter(0.3, 0.3, 0.3, 0.1)
+        self.normalize = T.Normalize()
+        self.crop = T.RandomCrop(cropsize)
+        self.label_pool = T.AvgPool2d(8)
+        self.extract = ExtractAffinityLabelInRadius(cropsize // 8, radius)
+        self.det_seed = det_seed
+        self._epoch = 0
+
+    def __len__(self):
+        return len(self.img_name_list)
+
+    def set_epoch(self, epoch: int):
+        self._epoch = epoch
+
+    def _load_label(self, folder: str, name: str) -> np.ndarray:
+        """(21, h, w) scores: an aff_prepare array, or the reference's
+        {class: map} dict saved as an object array (voc12/data.py:239-246)."""
+        label = np.load(os.path.join(folder, name + ".npy"), allow_pickle=True)
+        if label.dtype == object:
+            label = np.array(list(label.item().values()))
+        return label
+
+    def __getitem__(self, idx: int):
+        import random
+
+        import PIL.Image
+
+        rng = (random.Random(f"{self.det_seed}:{self._epoch}:{idx}")
+               if self.det_seed is not None else None)
+        name = self.img_name_list[idx]
+        img = PIL.Image.open(get_img_path(name, self.voc12_root)).convert("RGB")
+        label = np.concatenate([self._load_label(self.label_la_dir, name),
+                                self._load_label(self.label_ha_dir, name)], axis=0)
+        label = np.transpose(label, (1, 2, 0))  # (h, w, 42)
+
+        # the reference's order (aff_train.py:42-60): jitter, a joint crop of
+        # the RAW uint8 image (so pad pixels become normalize(0), not 0),
+        # normalize, a joint flip
+        img = self.jitter(img, rng)
+        raw = np.asarray(img, np.float32)
+        box = self.crop.get_box(*raw.shape[:2], rng=rng)
+        raw = self.crop.apply(raw, box)
+        label = self.crop.apply(label.astype(np.float32), box)
+        arr = self.normalize(raw)
+        if bool((rng or random).getrandbits(1)):
+            arr = np.fliplr(arr).copy()
+            label = np.fliplr(label).copy()
+        label = self.label_pool(label)
+
+        # la/ha fusion (voc12/data.py:251-258)
+        no_score = np.max(label, -1) < 1e-5
+        la, ha = np.array_split(label, 2, axis=-1)
+        la = np.argmax(la, axis=-1).astype(np.uint8)
+        ha = np.argmax(ha, axis=-1).astype(np.uint8)
+        fused = la.copy()
+        fused[la == 0] = 255  # low-alpha background: ignore
+        fused[ha == 0] = 0    # high-alpha background: confident background
+        fused[no_score] = 255
+        return arr, self.extract(fused)

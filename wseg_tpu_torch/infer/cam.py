@@ -230,6 +230,14 @@ def make_fused_msf_fn(model: torch.nn.Module, orig_hw: tuple[int, int],
 # ---------------------------------------------------------------------------
 
 
+def write_png(path: str, label: np.ndarray):
+    """An (H, W) uint8 label map as a greyscale png (PIL: the card's machine
+    has no imageio)."""
+    from PIL import Image
+
+    Image.fromarray(np.ascontiguousarray(label, np.uint8)).save(path)
+
+
 def save_cam_dict(out_dir: str, name: str, norm_cam: np.ndarray, label: np.ndarray):
     """{class_idx: (H, W) float32} for present classes -> <name>.npy."""
     os.makedirs(out_dir, exist_ok=True)
@@ -240,10 +248,8 @@ def save_cam_dict(out_dir: str, name: str, norm_cam: np.ndarray, label: np.ndarr
 
 def save_cam_pred(out_dir: str, name: str, norm_cam: np.ndarray, alpha: float = 0.26):
     """argmax png with constant bg score `alpha` (contrast_infer.py:92-99)."""
-    import imageio
-
     os.makedirs(out_dir, exist_ok=True)
     bg = np.ones_like(norm_cam[:1]) * alpha
     pred = np.argmax(np.concatenate([bg, norm_cam], axis=0), axis=0).astype(np.uint8)
-    imageio.imsave(os.path.join(out_dir, name + ".png"), pred)
+    write_png(os.path.join(out_dir, name + ".png"), pred)
     return pred

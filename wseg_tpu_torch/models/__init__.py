@@ -1,10 +1,11 @@
 import torch
 
+from wseg_tpu_torch.models.affinity import AffinityNet
 from wseg_tpu_torch.models.contrast import ContrastNet
 from wseg_tpu_torch.utils.device import resolve_device
 from wseg_tpu_torch.utils.registry import MODELS
 
-__all__ = ["ContrastNet", "build_model"]
+__all__ = ["AffinityNet", "ContrastNet", "build_model"]
 
 
 def build_model(name: str, device: str | torch.device = "cuda", **kwargs):

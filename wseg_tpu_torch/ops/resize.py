@@ -170,6 +170,17 @@ def resize_bilinear_valid(
     return y.to(x.dtype)
 
 
+def avg_pool2d(x: torch.Tensor, ksize: int) -> torch.Tensor:
+    """Non-overlapping k x k mean over the last two dims of (N, C, H, W) or
+    (C, H, W), both divisible by k: F.avg_pool2d(x, k, k) (aff_infer.py:113
+    of the reference)."""
+    h, w = x.shape[-2:]
+    if h % ksize or w % ksize:
+        raise ValueError(f"avg_pool2d: {h}x{w} is not divisible by {ksize}")
+    y = x.reshape(*x.shape[:-2], h // ksize, ksize, w // ksize, ksize)
+    return y.mean(dim=(-3, -1))
+
+
 def resize_bicubic(x: torch.Tensor, out_hw: tuple[int, int],
                    uint8_rounding: bool = True) -> torch.Tensor:
     """PIL-BICUBIC-equivalent resize of the last two dims (antialiased on

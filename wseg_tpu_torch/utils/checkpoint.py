@@ -6,6 +6,9 @@
   `convert_torch_state_dict` (wseg_tpu/utils/checkpoint.py:61-114).
 * `load_weights`: a reference `.pth` state_dict, or a JAX `.ckpt` file (flax
   msgpack of {'params', 'batch_stats'}), decoded here without flax.
+* `merge_state_dict`: loaded weights laid over a model's own, keeping its
+  init where a key is missing or its shape differs (a stage-1 net's weights
+  into AffinityNet).
 * `save_weights` / `save_train_state` / `load_train_state`: the port's own
   files, written with torch.save: a state_dict with the reference's keys
   (readable by `load_weights` and by the JAX package's `.pth` import), and a
@@ -121,6 +124,32 @@ def load_weights(path: str) -> dict[str, torch.Tensor]:
         tree = read_flax_msgpack(path)
         return state_dict_from_jax(tree["params"], tree.get("batch_stats", {}))
     raise ValueError(f"unknown weights format (expected .pth or .ckpt): {path}")
+
+
+def merge_state_dict(init: Mapping[str, torch.Tensor], loaded: Mapping[str, torch.Tensor],
+                     what: str = "") -> dict[str, torch.Tensor]:
+    """`init` with every entry that `loaded` has at the same shape replaced
+    by the loaded tensor (in init's dtype); the rest keep their init, as
+    `load_state_dict(strict=False)` would if it skipped shape mismatches
+    (the JAX package's merge_params). With `what` set, prints how many
+    entries matched and warns when none did: a file of another model would
+    otherwise "load" silently and train from random init."""
+    out, matched = {}, 0
+    for key, val in init.items():
+        new = loaded.get(key)
+        if new is not None and tuple(new.shape) == tuple(val.shape):
+            out[key] = new.to(dtype=val.dtype)
+            matched += 1
+        else:
+            out[key] = val
+    if what:
+        print(f"merged {matched}/{len(init)} {what}")
+        if matched == 0 and init:
+            import warnings
+
+            warnings.warn(f"no {what} matched the model's state_dict: the file's keys do "
+                          "not overlap this model; everything stays at init")
+    return out
 
 
 def _atomic_save(obj, path: str):

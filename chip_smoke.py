@@ -40,18 +40,39 @@ Phases, each fatal on failure (non-zero exit, no result line):
      argmax masks equal except at near-ties; one make_aff_train_step step
      (crop 64, batch 2, dropout off);
  12. random-walk inference at working size: RandomWalkRefiner.refine_batch
-     on 96 images at 384x512 (the CLI's default chunk) in f32: images/s,
-     peak memory, a per-stage breakdown (trunk, pair affinities, dense
-     matrix, walk) and a profiled batch; then the bf16 chain's time and its
-     argmax agreement with f32;
+     on 24 images at 384x512 (a quarter of the CLI's default 96-image chunk,
+     for time) in f32: images/s, peak memory, a per-stage breakdown (trunk,
+     pair affinities, dense matrix, walk) and a profiled batch; then the
+     bf16 chain's time and its argmax agreement with f32;
  13. AffinityNet training at working size: crop 448, batch 8, f32 (TF32
      off): ms/step, images/s, peak memory, a profiled step;
  14. the stage-2 CLI chain on a synthetic VOC root from random weights:
      contrast_infer --out_cam --out_crf, aff_prepare (5 alphas, host seconds
      per image), aff_train (1 epoch, then a --resume'd epoch, from a
      contrast state_dict), aff_infer; every png is checked.
-Stage 2 runs no kernel of the port (its pair affinities, dense matrix and
-walk are plain PyTorch, as they are plain XLA in the JAX package).
+ 15. stage-3 parity: one train-mode step (96x128, dropout off) of DeepLab v1
+     / ResNet-38 (batch 2) and v2 / ResNet-101 (batch 4) at full width on the card
+     (f32, TF32 off) against the same weights on the CPU: loss, parameters
+     and running-stat updates; then each net's bucketed eval forward (two
+     sizes in one 64-bucket) against the exact-shape forwards;
+ 16. DeepLab training at the presets' size (crop 448; v1 / ResNet-38 batch
+     10, cuDNN autotuned as seg_train runs it; v2 / ResNet-101 batch 12 on
+     cuDNN's heuristics, since its ~2 min of autotuning would not fit this
+     script's time limit), f32: ms/step, images/s, peak memory, device busy
+     and a profiled step;
+ 17. seg_test's 6-scale x flip TTA at working size: 16 VOC-sized images in
+     one 64-bucketed chunk through the CLI's own functions: a device pass
+     with the CLI's cudnn.benchmark, a profiled pass, the host's upsamples,
+     softmax and native CRF per image, alone and on the CLI's 4 threads;
+     then the CLI end to end on the same images;
+ 18. the stage-3 CLI chain on a synthetic seg root from random weights:
+     seg_train (a contrast state_dict as the backbone, 1 epoch with a train
+     state, then a resumed epoch), seg_test (chunks of 4) with the CRF and
+     with --no_crf; every png, the eval log and the rate line are checked.
+Stages 2 and 3 run no kernel of the port (stage 2's pair affinities, dense
+matrix and walk are plain PyTorch, as they are plain XLA in the JAX package;
+stage 3's convs are cuDNN's, as the JAX nets' are XLA's); phases 16 and 17
+check that neither K1 nor K2 launched.
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit; the last line is {"ok": true, "device": {...}}.
 Weights are random, from a seed; nothing is downloaded.
@@ -73,7 +94,7 @@ import torch
 from wseg_tpu_torch.infer.cam import CamInferencer, make_fused_msf_fn
 from wseg_tpu_torch.kernels import _build, conv_cuda, pcm_cuda
 from wseg_tpu_torch.models import build_model
-from wseg_tpu_torch.models.layers import Dropout2d
+from wseg_tpu_torch.models.layers import Dropout
 from wseg_tpu_torch.ops.conv import conv3x3_dilated_plain
 from wseg_tpu_torch.ops.pairs import pairwise_affinity_sliced
 from wseg_tpu_torch.ops.pcm import pcm_flat, pcm_flat_bf16
@@ -480,7 +501,7 @@ def phase_conv_probe(card: str) -> int:
 
 def disable_dropout(model):
     for m in model.modules():
-        if isinstance(m, Dropout2d):
+        if isinstance(m, Dropout):
             m.rate = 0.0
 
 
@@ -610,6 +631,7 @@ def phase_train_cli(card: str):
     from wseg_tpu_torch.cli import contrast_train
     from wseg_tpu_torch.utils.checkpoint import load_weights
 
+    torch.backends.cudnn.benchmark = False  # as a fresh process has it: the CLI sets nothing
     shutil.rmtree(BUILD_SCRATCH, ignore_errors=True)
     root, train_list = make_voc(BUILD_SCRATCH / "VOC2012")
     common = ["--train_list", train_list, "--voc12_root", root, "--crop_size", "448",
@@ -751,9 +773,14 @@ def print_top(card: str, totals: dict, k: int = 12):
         print(f"{card} |   {v:9.2f} ms {100 * v / busy:5.1f}%  {name[:100]}")
 
 
+WALK_IMAGES = 24  # of the CLI's 96-image chunk: autotuning the batch-96 trunk took ~250 s
+
+
 def phase_rw_working_size(card: str):
-    """refine_batch at the CLI's default chunk: 96 images at 384x512, with
-    cuDNN autotuned as in the aff_infer CLI."""
+    """refine_batch at 384x512 on WALK_IMAGES images, one chunk of the
+    CLI's (96 images: checked, but a quarter of it is run to keep this
+    script inside its time limit), with cuDNN autotuned as in the aff_infer
+    CLI."""
     torch.backends.cudnn.benchmark = True
     from wseg_tpu_torch.infer.rw import MAX_WALK_PX, RandomWalkRefiner
     from wseg_tpu_torch.models.affinity import clamped_radius
@@ -766,6 +793,7 @@ def phase_rw_working_size(card: str):
     n = refiner.chunk_size(H0, W0)
     if n != MAX_WALK_PX // (H0 * W0) or n != 96:
         raise SystemExit(f"chip_smoke: expected a chunk of 96 at {H0}x{W0}, got {n}")
+    n = WALK_IMAGES
     items = stage2_items(np.random.default_rng(SEED + 7), n, [(H0, W0)], n_cams=8)
 
     refiner.refine_batch(items)  # warm-up (cuDNN autotune)
@@ -890,6 +918,7 @@ def phase_stage2_cli(card: str):
     from wseg_tpu_torch.cli import aff_infer, aff_prepare, aff_train, contrast_infer
     from wseg_tpu_torch.utils.checkpoint import load_weights, save_weights
 
+    torch.backends.cudnn.benchmark = False  # contrast_infer sets nothing; aff_* set it on
     base = BUILD_SCRATCH / "stage2"
     shutil.rmtree(base, ignore_errors=True)
     root, lst = make_voc(base / "VOC2012")
@@ -944,23 +973,433 @@ def phase_stage2_cli(card: str):
     shutil.rmtree(base, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# stage 3: DeepLab training and 6-scale x flip testing
+
+
+def seg_cfg(exp: str, **kw):
+    from wseg_tpu_torch.seg.config import EXPERIMENTS
+
+    return EXPERIMENTS[exp].replace(**kw)
+
+
+def seg_net(cfg, device="cuda"):
+    """A stage-3 net with random weights from SEED, its cls_conv scaled by
+    0.02: a raw He-init head starts at CE ~ 13 (most pixels confidently
+    wrong), scaled it starts near ln 21, as a net from stage-1 weights does."""
+    from wseg_tpu_torch.seg.deeplab import generate_net
+
+    model = generate_net(cfg, device=device, generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        model.cls_conv.weight.mul_(0.02)
+    return model
+
+
+def seg_batch(gen, n: int, crop: int, device="cuda"):
+    """n random normalised images and labels 0..20 with ~10% 255."""
+    img = torch.randn(n, 3, crop, crop, generator=gen, device=device)
+    lab = torch.randint(0, 21, (n, crop, crop), generator=gen, device=device)
+    lab[torch.rand(n, crop, crop, generator=gen, device=device) < 0.1] = 255
+    return img.contiguous(memory_format=torch.channels_last), lab
+
+
+def phase_seg_parity():
+    """Stage 3 on the card vs the CPU, same weights, f32 with TF32 off: one
+    train-mode step (dropout keep-all) of DeepLab v1 / ResNet-38 at batch 2
+    and v2 / ResNet-101 at batch 4, full width, at 96x128; then the bucketed
+    eval forward of two sizes in one 64-bucket against each size's exact
+    forward, on the card.
+
+    v2 runs at batch 4: its ASPP global branch normalises the pooled
+    features over the batch, and at batch 2 some of its 256 channels pool
+    to nearly equal values (batch variance < 1e-4, against eps 1e-5), where
+    BN divides their difference by ~sqrt(eps) and turns rounding into
+    signal: the card and the CPU then differed by up to 2.2e-3 in the
+    running-stat update of the conv after it, with parameters within 3e-5."""
+    from wseg_tpu_torch.train.optim import PolySGD, param_groups, seg_label_params
+    from wseg_tpu_torch.train.seg import make_seg_train_step
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    img = torch.randn(4, 3, 96, 128, generator=gen)
+    # images of different global content, as photos have
+    img = img * torch.tensor([1.0, 0.6, 1.3, 0.8])[:, None, None, None] \
+        + torch.tensor([0.0, 0.8, -0.4, 0.3])[:, None, None, None]
+    lab = torch.randint(0, 21, (4, 96, 128), generator=gen)
+    lab[torch.rand(4, 96, 128, generator=gen) < 0.1] = 255
+    for exp, n in (("SEAM_deeplabv1_resnet38", 2), ("EPS_deeplabv2_resnet101", 4)):
+        cfg = seg_cfg(exp)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = seg_net(cfg, dev)
+            disable_dropout(model)
+            before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            opt = PolySGD(param_groups(model, seg_label_params(model)), cfg.TRAIN_LR,
+                          cfg.TRAIN_WEIGHT_DECAY, cfg.TRAIN_ITERATION + 1, momentum=0.9)
+            mets = make_seg_train_step(model, opt)(img[:n].to(dev), lab[:n].to(dev))
+            runs[dev] = (float(mets["loss"]), before,
+                         {k: v.detach().cpu() for k, v in model.state_dict().items()})
+            del model, opt
+        (loss_c, init, sd_c), (loss_g, _, sd_g) = runs["cpu"], runs["cuda"]
+        loss_err = abs(loss_g - loss_c) / abs(loss_c)
+        params, stats = {}, {}
+        for k in sd_c:
+            if k.endswith(("running_mean", "running_var")):
+                d_c, d_g = sd_c[k] - init[k], sd_g[k] - init[k]
+                ulp = float(np.spacing(np.float32(sd_c[k].abs().max())))
+                stats[k] = float((d_g - d_c).abs().max()) / (TRAIN_RTOL * float(d_c.abs().max())
+                                                              + ulp)
+            else:
+                params[k] = rel_err(sd_g[k], sd_c[k])
+        (pk, param_err), (sk, stat_err) = (max(d.items(), key=lambda kv: kv[1])
+                                           for d in (params, stats))
+        print(f"[seg-parity] {exp} train step batch {n} at 96x128, card (f32, TF32 off) vs CPU: "
+              f"loss {loss_g:.6f} rel err {loss_err:.3e}; params max rel err {param_err:.3e} "
+              f"({pk}); running-stat updates {stat_err:.3e} of the tolerance ({TRAIN_RTOL} of "
+              f"the update + 1 ulp of the stat; {sk}); worst five: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(stats.items(), key=lambda kv: -kv[1])[:5]),
+              flush=True)
+        if loss_err > TRAIN_RTOL or param_err > TRAIN_RTOL or stat_err > 1:
+            raise SystemExit(f"chip_smoke: the stage-3 step of {exp} on the card disagrees "
+                             "with the CPU")
+
+        model = seg_net(cfg).eval()
+        sizes = [(120, 185), (97, 150)]
+        x = torch.zeros(2, 3, 128, 192, device="cuda")
+        for i, (h, w) in enumerate(sizes):
+            x[i, :, :h, :w] = torch.randn(3, h, w, generator=gen).cuda()
+        valid = torch.tensor(sizes, device="cuda")
+        worst = 0.0
+        with torch.inference_mode():
+            bucketed = model(x, valid_hw=valid, raw_logits=True)
+            for i, (h, w) in enumerate(sizes):
+                exact = model(x[i:i + 1, :, :h, :w], raw_logits=True)[0]
+                h8, w8 = exact.shape[-2:]
+                worst = max(worst, float((bucketed[i, :, :h8, :w8] - exact).abs().max()
+                                         / exact.abs().max()))
+        print(f"[seg-parity] {exp} bucketed eval (2 sizes in a 128x192 bucket) vs exact on the "
+              f"card: valid stride-8 logits {worst:.3e} of the max (bound 1e-4)", flush=True)
+        if not worst <= 1e-4:
+            raise SystemExit(f"chip_smoke: {exp} bucketed forward disagrees with exact")
+        del model
+        torch.cuda.empty_cache()
+
+
+def time_steps(step, batch, timed: int):
+    """ms a step (mean of `timed` after one warm-up), the last metrics, and
+    the peak device memory of the timed steps."""
+    step(*batch)  # warm-up (cuDNN autotune)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        mets = step(*batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / timed * 1e3, mets, torch.cuda.max_memory_allocated()
+
+
+def phase_seg_train_working_size(card: str):
+    """DeepLab training at the presets' working size, f32 (TF32 off), on
+    device-resident random images and labels: SEAM v1 / ResNet-38 at crop
+    448, batch 10 (1 + 10 steps and a profiled one), cuDNN autotuned as in
+    the seg_train CLI; then EPS v2 / ResNet-101 at crop 448, batch 12 (1 + 3)
+    on cuDNN's heuristics: its first step's autotuning takes ~2 minutes
+    (PERF.md), which this script's time limit cannot hold. Its shapes recur
+    in no later phase, so the heuristic plans it caches reach no other
+    reading."""
+    from wseg_tpu_torch.train.optim import PolySGD, param_groups, seg_label_params
+    from wseg_tpu_torch.train.seg import make_seg_train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    pcm_cuda.reset_launches()
+    conv_cuda.reset_launches()
+    for exp, timed, autotuned in (("SEAM_deeplabv1_resnet38", 10, True),
+                                  ("EPS_deeplabv2_resnet101", 3, False)):
+        torch.backends.cudnn.benchmark = autotuned
+        cfg = seg_cfg(exp)
+        n, crop = cfg.TRAIN_BATCHES, cfg.DATA_RANDOMCROP
+        model = seg_net(cfg)
+        opt = PolySGD(param_groups(model, seg_label_params(model)), cfg.TRAIN_LR,
+                      cfg.TRAIN_WEIGHT_DECAY, cfg.TRAIN_ITERATION + 1, momentum=cfg.TRAIN_MOMENTUM)
+        step = make_seg_train_step(model, opt, generator=torch.Generator(device="cuda")
+                                   .manual_seed(SEED))
+        batch = seg_batch(gen, n, crop)
+        t_first = time.perf_counter()
+        ms, mets, peak = time_steps(step, batch, timed)
+        loss = float(mets["loss"])
+        print(f"{card} | seg train {exp} ({cfg.MODEL_NAME}, {cfg.MODEL_BACKBONE}) crop {crop} "
+              f"batch {n} f32 (TF32 off), cuDNN {'autotuned' if autotuned else 'heuristics'}: "
+              f"{ms:.1f} ms/step, {n / ms * 1e3:.2f} images/s (mean of "
+              f"{timed} steps after 1 warm-up; warm-up + timed {time.perf_counter() - t_first:.1f} "
+              f"s), peak device memory {peak / 2**30:.2f} GiB; last loss {loss:.4f}", flush=True)
+        if not np.isfinite(loss):
+            raise SystemExit(f"chip_smoke: non-finite stage-3 training loss ({exp})")
+        if autotuned:
+            totals = profile_kernels(lambda: step(*batch))
+            busy = sum(totals.values())
+            print(f"{card} | profiled seg train step: device busy {busy:.1f} ms of {ms:.1f} ms "
+                  f"a step (idle {100 * max(0.0, 1 - busy / ms):.1f}%); top kernels:")
+            print_top(card, totals, k=15)
+        del model, opt, step, batch
+        torch.cuda.empty_cache()
+    print(f"{card} | stage-3 training launched PCM {pcm_cuda.launches} and K2 "
+          f"{conv_cuda.launches} times (its convs are cuDNN's, as the JAX nets' are XLA's)",
+          flush=True)
+    if pcm_cuda.launches or conv_cuda.launches:
+        raise SystemExit("chip_smoke: stage 3 unexpectedly launched a port kernel")
+
+
+def make_seg_root(root: Path, sizes, n_labels: int = 21):
+    """A VOC seg root (JPEGImages, SegmentationClass, trainaug / val lists)
+    of random images and a pseudo-mask dir beside it; returns (voc root,
+    pseudo dir, names). The images are smooth (a 12x16 random grid, bicubic
+    upsampled, plus noise of 8 grey levels): the permutohedral CRF's cost
+    grows with the colours an image holds, and white noise, unlike a photo,
+    fills its lattice."""
+    from PIL import Image
+
+    rng = np.random.RandomState(SEED)
+    voc = root / "VOC2012"
+    for d in ("JPEGImages", "SegmentationClass", "ImageSets/Segmentation"):
+        (voc / d).mkdir(parents=True)
+    (root / "pseudo").mkdir()
+    names = []
+    for i, (h, w) in enumerate(sizes):
+        name = f"2007_{i:06d}"
+        grid = Image.fromarray((rng.rand(12, 16, 3) * 255).astype(np.uint8))
+        img = np.asarray(grid.resize((w, h), Image.BICUBIC), np.float32)
+        img = np.clip(img + rng.randn(h, w, 3) * 8, 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(voc / "JPEGImages" / f"{name}.jpg")
+        for folder in (voc / "SegmentationClass", root / "pseudo"):
+            lab = rng.randint(0, n_labels, (h, w)).astype(np.uint8)
+            lab[:, :4] = 255
+            Image.fromarray(lab).save(folder / f"{name}.png")
+        names.append(name)
+    for lst in ("trainaug.txt", "val.txt"):
+        (voc / "ImageSets" / "Segmentation" / lst).write_text("".join(f"{x}\n" for x in names))
+    return str(voc), str(root / "pseudo"), names
+
+
+def tta_inputs(voc: str):
+    """(cfg, dataset, chunk of samples, model) of phase 17's images."""
+    from wseg_tpu_torch.cli import seg_test
+    from wseg_tpu_torch.seg.dataset import generate_dataset
+
+    cfg = seg_cfg("SEAM_deeplabv1_resnet38", DATA_ROOT=voc)
+    ds = generate_dataset(cfg, "val")
+    chunk = [ds[i] for i in range(seg_test.BATCH)]
+    return cfg, ds, chunk, seg_net(cfg).eval()
+
+
+def tta_device_pass(cfg, chunk, model):
+    """seg_test's forward of one chunk, all scales: ([(stride-8 logits,
+    view sizes)] a scale, [(bucket shape, forwards)] a scale)."""
+    from wseg_tpu_torch.cli import seg_test
+
+    outs, shapes = [], []
+    for rate in cfg.TEST_MULTISCALE:
+        imgs = [s["image_%f" % rate] for s in chunk]
+        batch, valid, cap = seg_test.pad_views(imgs, len(chunk), 2, 64)
+        shapes.append((batch.shape[1:3], len(batch) // cap))
+        outs.append((seg_test.forward_views(model, batch, valid, cap, "cuda"),
+                     [im.shape[:2] for im in imgs]))
+    torch.cuda.synchronize()
+    return outs, shapes
+
+
+def phase_seg_test_working_size(card: str):
+    """seg_test's TTA at working size: 16 VOC-sized images (375x500 and
+    500x375 mixed) in one chunk, bucket 64, 6 scales x flip, f32 (TF32 off),
+    through the CLI's own functions: a device pass with the CLI's
+    cudnn.benchmark (off: a cold pass read within 1% of a warm one), a
+    profiled pass; the host's post-processing per image (upsamples +
+    softmax, the native CRF) alone and on the CLI's 4 threads; then the CLI
+    end to end on the same images."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from wseg_tpu_torch.cli import seg_test
+    from wseg_tpu_torch.ops.densecrf import dense_crf
+    from wseg_tpu_torch.utils.checkpoint import save_weights
+
+    base = BUILD_SCRATCH / "seg_tta"
+    shutil.rmtree(base, ignore_errors=True)
+    n = seg_test.BATCH
+    voc, _, names = make_seg_root(base, [(375, 500), (500, 375)] * (n // 2))
+    t0 = time.perf_counter()
+    cfg, ds, chunk, model = tta_inputs(voc)
+    prep_s = time.perf_counter() - t0
+    n_flip, n_views = 2, 2 * len(cfg.TEST_MULTISCALE)
+    torch.backends.cudnn.benchmark = seg_test.CUDNN_BENCHMARK
+    pcm_cuda.reset_launches()
+    conv_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs, shapes = tta_device_pass(cfg, chunk, model)
+    dev_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{card} | seg_test TTA chunk of {n} images (375x500 / 500x375), 6 scales x flip, "
+          f"bucket 64, f32 (TF32 off); bucket shapes and forwards a scale: "
+          + ", ".join(f"{tuple(hw)} x{k}" for hw, k in shapes), flush=True)
+    print(f"{card} | device pass (pad + forward + copy back), cudnn.benchmark "
+          f"{seg_test.CUDNN_BENCHMARK} as the CLI: {dev_s:.2f} s ({dev_s / n * 1e3:.1f} ms an "
+          f"image); peak device memory {peak / 2**30:.2f} GiB; host prep (model, decode + 6 "
+          f"cubic resizes of {n} images) {prep_s:.1f} s", flush=True)
+    wall0 = time.perf_counter()
+    totals = profile_kernels(lambda: tta_device_pass(cfg, chunk, model))
+    wall = time.perf_counter() - wall0
+    busy = sum(totals.values())
+    print(f"{card} | profiled device pass: device busy {busy:.1f} ms ({busy / n:.1f} ms an "
+          f"image) of {dev_s * 1e3:.1f} ms unprofiled wall (idle "
+          f"{100 * max(0.0, 1 - busy / (dev_s * 1e3)):.1f}%: host padding and copies; "
+          f"profiled wall {wall * 1e3:.1f} ms); top kernels:", flush=True)
+    print_top(card, totals, k=10)
+
+    def views_of(i):
+        views = []
+        for logits8, hws in outs:
+            vh, vw = hws[i]
+            lg8 = logits8[n_flip * i:n_flip * i + n_flip, :-(-vh // 8), :-(-vw // 8)]
+            views += [(lg8[j], vh, vw, j == 1) for j in range(n_flip)]
+        return views
+
+    t0 = time.perf_counter()
+    prob = seg_test.fuse_views(views_of(0), (chunk[0]["row"], chunk[0]["col"]), n_views)
+    fuse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    crf = dense_crf(np.ascontiguousarray(prob.transpose(2, 0, 1)), ds.load_image(names[0]))
+    crf_s = time.perf_counter() - t0
+
+    def post(i):
+        p = seg_test.fuse_views(views_of(i), (chunk[i]["row"], chunk[i]["col"]), n_views)
+        return dense_crf(np.ascontiguousarray(p.transpose(2, 0, 1)), ds.load_image(names[i]))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        preds = list(pool.map(post, range(n)))
+    pool_s = time.perf_counter() - t0
+    if not all(p.shape == (21, c["row"], c["col"]) and np.isfinite(p).all()
+               for p, c in zip(preds, chunk)) or crf.shape != preds[0].shape:
+        raise SystemExit("chip_smoke: seg_test post-processing gave a wrong shape or NaN")
+    print(f"{card} | host post per image, alone: 12 views' two upsamples + softmax "
+          f"{fuse_s * 1e3:.1f} ms, native CRF {crf_s * 1e3:.1f} ms; {n} images on the CLI's 4 "
+          f"threads {pool_s:.2f} s vs the device pass {dev_s:.2f} s: the "
+          f"{'host' if pool_s > dev_s else 'device'} sets the pace ({os.cpu_count()} cores)",
+          flush=True)
+    del model, outs
+    torch.cuda.empty_cache()
+
+    pth = str(base / "seg.pth")
+    save_weights(pth, seg_net(cfg, "cpu"))
+    out = run_cli(base, seg_test.main, ["--data_root", voc, "--ckpt", pth])
+    rate_line = next(line for line in out.splitlines() if "imgs/s end-to-end" in line)
+    check_pngs(base / "results" / "Segmentation" / "deeplabv1_val", names,
+               [(c["row"], c["col"]) for c in chunk], "seg_test")
+    print(f"{card} | seg_test CLI on the same {n} images (one chunk: prep, device and post "
+          f"in sequence, CRF on): {rate_line.strip()}", flush=True)
+    print(f"{card} | stage-3 testing launched PCM {pcm_cuda.launches} and K2 "
+          f"{conv_cuda.launches} times", flush=True)
+    if pcm_cuda.launches or conv_cuda.launches:
+        raise SystemExit("chip_smoke: stage 3 unexpectedly launched a port kernel")
+    shutil.rmtree(base, ignore_errors=True)
+
+
+def run_cli(cwd: Path, main, argv) -> str:
+    """Run a CLI's main in `cwd`, echo its stdout, and return it."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    old = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+    finally:
+        os.chdir(old)
+    out = buf.getvalue()
+    print("\n".join(f"    {line}" for line in out.splitlines()[-6:]), flush=True)
+    return out
+
+
+def phase_seg_cli(card: str):
+    """The stage-3 CLI chain on a synthetic seg root from random weights:
+    seg_train (a stage-1 contrast state_dict as --backbone_weights, 2
+    epochs with --save_state, stopped after one and resumed), then seg_test
+    with the native CRF and with --no_crf; every png, the logfile and the
+    rate line are checked."""
+    from wseg_tpu_torch.cli import seg_test, seg_train
+    from wseg_tpu_torch.utils.checkpoint import load_weights, save_weights
+
+    base = BUILD_SCRATCH / "stage3"
+    shutil.rmtree(base, ignore_errors=True)
+    sizes = [(150, 200), (200, 150), (120, 160), (160, 120)]
+    voc, pseudo, names = make_seg_root(base, sizes)
+    contrast_pth = str(base / "contrast.pth")
+    save_weights(contrast_pth, build_model("contrast", device="cpu",
+                                           generator=torch.Generator().manual_seed(SEED)))
+    common = ["--data_root", voc, "--pseudo_gt", pseudo, "--iterations", "4", "--batch_size",
+              "2", "--crop", "224", "--backbone_weights", contrast_pth]
+    t = {}
+    t0 = time.perf_counter()
+    run_cli(base, seg_train.main, common + ["--save_state", "--stop_after_epoch", "1"])
+    run_cli(base, seg_train.main, common + ["--resume",
+                                            "model/SEAM_deeplabv1_resnet38/seg_train_state.pth",
+                                            "--min_epoch", "1"])
+    t["seg_train (1 epoch + a resumed epoch)"] = time.perf_counter() - t0
+    pth = str(base / "model" / "SEAM_deeplabv1_resnet38"
+              / "deeplabv1_resnet38_VOCDataset_itr4_all.pth")
+    sd = load_weights(pth)
+    contrast = load_weights(contrast_pth)
+    if not all(bool(torch.isfinite(v).all()) for v in sd.values()):
+        raise SystemExit("chip_smoke: non-finite weights after seg_train")
+    if torch.equal(sd["backbone.b7.conv_branch2a.weight"], contrast["b7.conv_branch2a.weight"]):
+        raise SystemExit("chip_smoke: seg_train did not move the loaded backbone")
+    for crf in (True, False):
+        d = base / ("crf" if crf else "nocrf")
+        d.mkdir()
+        t0 = time.perf_counter()
+        out = run_cli(d, seg_test.main, ["--data_root", voc, "--ckpt", pth, "--batch_size", "4"]
+                      + ([] if crf else ["--no_crf"]))
+        t[f"seg_test ({'CRF' if crf else '--no_crf'})"] = time.perf_counter() - t0
+        check_pngs(d / "results" / "Segmentation" / "deeplabv1_val", names, sizes, "seg_test")
+        log = (d / "log" / "SEAM_deeplabv1_resnet38" / "logfile.txt").read_text()
+        if "mIoU:" not in log or "imgs/s end-to-end" not in out:
+            raise SystemExit("chip_smoke: seg_test wrote no eval log or rate line")
+    print(f"{card} | stage-3 CLI chain on {len(names)} synthetic images: "
+          + "; ".join(f"{k} {v:.1f} s" for k, v in t.items()), flush=True)
+    shutil.rmtree(base, ignore_errors=True)
+
+
+def timed(name: str, fn, *args):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name, card = phase_device()
-    phase_build()
-    pcm_row = phase_kernel_vs_plain(name)
-    phase_slice_parity()
-    pcm_row["launches"] = phase_working_size(card)
-    conv_row = phase_conv_vs_plain(name, card)
-    conv_row["launches"] = phase_conv_probe(card)
-    phase_train_parity()
-    phase_train_working_size(card)
-    phase_train_cli(card)
-    phase_stage2_parity()
-    phase_rw_working_size(card)
-    phase_aff_train_working_size(card)
-    phase_stage2_cli(card)
+    timed("2 build", phase_build)
+    pcm_row = timed("3 PCM vs plain", phase_kernel_vs_plain, name)
+    timed("4 slice parity", phase_slice_parity)
+    pcm_row["launches"] = timed("5 CAM inference", phase_working_size, card)
+    conv_row = timed("6 conv vs plain", phase_conv_vs_plain, name, card)
+    conv_row["launches"] = timed("7 conv probe", phase_conv_probe, card)
+    timed("8 train parity", phase_train_parity)
+    timed("9 training", phase_train_working_size, card)
+    timed("10 training CLI", phase_train_cli, card)
+    timed("11 stage-2 parity", phase_stage2_parity)
+    timed("12 random walk", phase_rw_working_size, card)
+    timed("13 AffinityNet training", phase_aff_train_working_size, card)
+    timed("14 stage-2 CLI chain", phase_stage2_cli, card)
+    timed("15 stage-3 parity", phase_seg_parity)
+    timed("16 seg training", phase_seg_train_working_size, card)
+    timed("17 seg_test TTA", phase_seg_test_working_size, card)
+    timed("18 stage-3 CLI chain", phase_seg_cli, card)
+    print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [pcm_row, conv_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -243,3 +243,65 @@ def test_train_step_on_card(cuda):
     assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
     assert not torch.equal(model.fc8.weight, fc8)
     assert torch.equal(model.conv1a.weight, conv1a)
+
+
+@pytest.mark.parametrize("momentum", [0.1, 3e-4])
+def test_batch_stats_bn_card_matches_cpu(cuda, momentum):
+    """Stage 3's batch-statistics BN on the card against the CPU: the
+    train-mode output within 1e-5 of its max, the running-stat update within
+    1e-4 of its max plus one ulp of the stat, and the eval-mode output."""
+    from wseg_tpu_torch.models.layers import BatchNorm2d
+
+    gen = torch.Generator().manual_seed(int(momentum * 1e4))
+    x = torch.randn(4, 24, 9, 11, generator=gen) * 1.7 + torch.randn(24, 1, 1, generator=gen)
+    bns = {}
+    for dev in ("cpu", cuda):
+        bn = BatchNorm2d(24, frozen=False, momentum=momentum).to(dev)
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 24))
+            bn.running_var.copy_(torch.linspace(0.5, 2.0, 24))
+        bns[str(dev)] = (bn, bn.train()(x.to(dev)).detach().cpu())
+    (bn_c, out_c), (bn_g, out_g) = bns["cpu"], bns[str(cuda)]
+    assert float((out_g - out_c).abs().max()) <= 1e-5 * float(out_c.abs().max())
+    for key, init in (("running_mean", torch.zeros(24)),
+                      ("running_var", torch.linspace(0.5, 2.0, 24))):
+        d_c, d_g = getattr(bn_c, key) - init, getattr(bn_g, key).cpu() - init
+        ulp = float(torch.finfo(torch.float32).eps) * float(getattr(bn_c, key).abs().max())
+        assert float((d_g - d_c).abs().max()) <= 1e-4 * float(d_c.abs().max()) + ulp, key
+    with torch.no_grad():
+        torch.testing.assert_close(bn_g.eval()(x.to(cuda)).cpu(), bn_c.eval()(x),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_seg_train_step_card_matches_cpu(cuda):
+    """One DeepLab v1 / ResNet-38 train-mode step at batch 2, 48x64, dropout
+    off, on the card and on the CPU from the same weights: loss and every
+    parameter within 1e-3 relative, the running stats moved on both."""
+    from wseg_tpu_torch.models.layers import Dropout
+    from wseg_tpu_torch.seg.config import EXPERIMENTS
+    from wseg_tpu_torch.seg.deeplab import generate_net
+    from wseg_tpu_torch.train.optim import seg_label_params
+    from wseg_tpu_torch.train.seg import make_seg_train_step
+
+    gen = torch.Generator().manual_seed(2)
+    img = torch.randn(2, 3, 48, 64, generator=gen)
+    lab = torch.randint(0, 21, (2, 48, 64), generator=gen)
+    lab[:, :5] = 255
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = generate_net(EXPERIMENTS["SEAM_deeplabv1_resnet38"], device=dev,
+                             generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            model.cls_conv.weight.mul_(0.02)
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+        opt = PolySGD(param_groups(model, seg_label_params(model)), 1e-3, 5e-4, 100,
+                      momentum=0.9)
+        loss = float(make_seg_train_step(model, opt)(img.to(dev), lab.to(dev))["loss"])
+        runs[str(dev)] = (loss, {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    (loss_c, sd_c), (loss_g, sd_g) = runs["cpu"], runs[str(cuda)]
+    assert abs(loss_g - loss_c) <= 1e-3 * abs(loss_c)
+    for k in sd_c:
+        assert float((sd_g[k] - sd_c[k]).abs().max()) <= 1e-3 * float(sd_c[k].abs().max()), k
+    assert float(sd_g["backbone.bn7.running_mean"].abs().max()) > 0

@@ -1,6 +1,7 @@
 """The port must run on a host that has torch and none of JAX: no module of
 wseg_tpu_torch, and not chip_smoke.py, may import jax, flax, optax or the JAX
-package wseg_tpu."""
+package wseg_tpu. Nor may they import cv2 or PIL at top level: the image
+libraries are imported inside the functions that use them."""
 
 import os
 import subprocess
@@ -11,7 +12,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "wseg_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "wseg_tpu", "cv2", "PIL")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -27,6 +28,7 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 assert not any(k == b or k.startswith(b + ".") for k in sys.modules for b in BLOCKED)
+print("\n".join(mods))
 print(len(mods))
 """
 
@@ -36,7 +38,10 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 48  # every module was walked
+    assert int(out.stdout.strip().splitlines()[-1]) >= 57  # every module was walked
+    for mod in ("seg.config", "seg.backbones", "seg.deeplab", "seg.dataset", "train.seg",
+                "cli.seg_train", "cli.seg_test", "utils.visualization"):
+        assert f"wseg_tpu_torch.{mod}" in out.stdout
 
 
 def test_blocker_blocks_the_jax_package():

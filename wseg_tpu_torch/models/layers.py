@@ -2,7 +2,7 @@
 
 Stage-1 backbones freeze every BatchNorm (resnet38d.py:207-212 of the
 reference), so stage-1 BN is a constant per-channel affine of the running
-stats. The batch-statistics mode belongs to stage 3 and is not ported yet.
+stats. Stage 3 (DeepLab) trains with batch statistics: `frozen=False`.
 """
 
 from __future__ import annotations
@@ -10,56 +10,89 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
 class BatchNorm2d(nn.Module):
-    """Frozen BatchNorm with the reference's state_dict keys (`weight`,
-    `bias`, `running_mean`, `running_var`): `x * scale + (bias - mean *
-    scale)` with `scale = weight * rsqrt(var + eps)`, as layers.py:61-62 of
-    the JAX package."""
+    """BatchNorm with the reference's state_dict keys (`weight`, `bias`,
+    `running_mean`, `running_var`).
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    frozen=True (the default), or eval mode: `x * scale + (bias - mean *
+    scale)` with `scale = weight * rsqrt(var + eps)` from the running stats,
+    as layers.py:61-62 of the JAX package.
+
+    frozen=False in train mode: normalise with the batch statistics over
+    (N, H, W) and update the running stats, torch's convention
+    `new = (1 - momentum) * old + momentum * batch` with the unbiased batch
+    variance (layers.py:49-59). This is `F.batch_norm`, chosen by the parity
+    test (tests/test_torch_seg_models.py): against the JAX package's E[x^2] -
+    E[x]^2 it agrees within 3.7e-7 of the output's max and 9.5e-7 of the
+    running-stat update's; where a channel's mean is 2 std, the JAX formula
+    is 1.3e-6 from the float64 result and `F.batch_norm` 1.0e-7, and no
+    formula written out in torch got closer to JAX than `F.batch_norm` does
+    (its summation order differs). Like torch, it refuses one value per
+    channel (N * H * W = 1)."""
+
+    def __init__(self, features: int, eps: float = 1e-5, frozen: bool = True,
+                 momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.frozen = frozen
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        shift = self.bias - self.running_mean * scale
-        return x * scale[:, None, None] + shift[:, None, None]
+        if self.frozen or not self.training:
+            scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+            shift = self.bias - self.running_mean * scale
+            return x * scale[:, None, None] + shift[:, None, None]
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                            training=True, momentum=self.momentum, eps=self.eps)
 
 
-class Dropout2d(nn.Module):
-    """Channel dropout (torch.nn.Dropout2d, resnet38d.py:64,68); the identity
-    in eval mode. With `generator` set (the training step sets it), the
-    per-(sample, channel) keep mask is drawn from that generator, so a run is
-    reproducible from its seed; without, from torch's global stream."""
+class Dropout(nn.Module):
+    """Element-wise dropout (the DeepLab heads' `jnp.where(mask, f / keep,
+    0)`, deeplab.py:150-153); the identity in eval mode. With `generator` set
+    (the training steps set it), the keep mask is drawn from that generator,
+    so a run is reproducible from its seed; without, from torch's global
+    stream. `rate = 0` keeps everything."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: torch.Generator | None = None
 
+    def mask_shape(self, x: torch.Tensor) -> tuple:
+        return tuple(x.shape)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        u = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=self.generator,
-                       device=x.device)
+        u = torch.rand(self.mask_shape(x), generator=self.generator, device=x.device)
         return x * ((u >= self.rate).to(x.dtype) / (1.0 - self.rate))
 
 
+class Dropout2d(Dropout):
+    """Channel dropout (torch.nn.Dropout2d, resnet38d.py:64,68): one keep
+    draw per (sample, channel)."""
+
+    def mask_shape(self, x: torch.Tensor) -> tuple:
+        return (x.shape[0], x.shape[1], 1, 1)
+
+
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, dilation: int = 1,
-         padding: int | None = None) -> nn.Conv2d:
-    """Bias-free Conv2d with the JAX package's padding rule: symmetric, by
-    default `dilation * (kernel - 1) // 2` ('same' for the dilated kernel)."""
+         padding: int | None = None, bias: bool = False) -> nn.Conv2d:
+    """Conv2d with the JAX package's padding rule: symmetric, by default
+    `dilation * (kernel - 1) // 2` ('same' for the dilated kernel); bias-free
+    unless asked."""
     if padding is None:
         padding = dilation * (kernel - 1) // 2
     return nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding,
-                     dilation=dilation, bias=False)
+                     dilation=dilation, bias=bias)
 
 
 def he_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

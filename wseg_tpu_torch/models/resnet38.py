@@ -2,8 +2,12 @@
 
 Counterpart of wseg_tpu/models/resnet38.py (reference network/resnet38d.py):
 pre-activation residual blocks, stride 8 via dilation 2 (b5*) and 4 (b6/b7),
-and the conv3/conv4/conv5/conv6 taps. BatchNorms are frozen. Module names are
-the reference's, so `state_dict()` keys equal its keys.
+and the conv3/conv4/conv5/conv6 taps. BatchNorms are frozen by default, as
+the reference forces for stages 1-2 (resnet38d.py:207-212). Its stage-3
+training scripts never call `net.train()`, so there the same trunk runs its BNs in
+batch-statistics mode with the module-constant momentum 3e-4
+(resnet38d.py:8): `bn_frozen=False` (seg/backbones.py:SegResNet38). Module
+names are the reference's, so `state_dict()` keys equal its keys.
 
 `valid_hw` (N, 2) marks per-sample valid regions when a batch is zero-padded
 to a common (bucketed) shape: the pad halo is re-zeroed after every bn+relu,
@@ -12,6 +16,8 @@ valid outputs equal the exact-shape forward.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -37,22 +43,26 @@ def apply_mask(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
     return x if mask is None else x * mask
 
 
+BN_MOM = 3e-4  # resnet38d.py:8, the momentum of every trunk BN
+
+
 class ResBlock(nn.Module):
     """Pre-activation basic block: bn-relu -> [1x1 shortcut if reshaping]
     + conv3x3(stride, first_dilation) - bn-relu - conv3x3(dilation)."""
 
     def __init__(self, in_channels: int, mid_channels: int, out_channels: int,
                  stride: int = 1, first_dilation: int | None = None,
-                 dilation: int = 1):
+                 dilation: int = 1, bn_frozen: bool = True):
         super().__init__()
         self.same_shape = in_channels == out_channels and stride == 1
         fd = dilation if first_dilation is None else first_dilation
-        self.bn_branch2a = BatchNorm2d(in_channels)
+        bn = partial(BatchNorm2d, frozen=bn_frozen, momentum=BN_MOM)
+        self.bn_branch2a = bn(in_channels)
         if not self.same_shape:
             self.conv_branch1 = conv(in_channels, out_channels, 1, stride)
         self.conv_branch2a = conv(in_channels, mid_channels, 3, stride,
                                   dilation=fd, padding=fd)
-        self.bn_branch2b1 = BatchNorm2d(mid_channels)
+        self.bn_branch2b1 = bn(mid_channels)
         self.conv_branch2b1 = conv(mid_channels, out_channels, 3,
                                    dilation=dilation, padding=dilation)
 
@@ -74,16 +84,17 @@ class ResBlockBot(nn.Module):
     The 1x1 shortcut is unconditional."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
-                 dilation: int = 1, dropout: float = 0.0):
+                 dilation: int = 1, dropout: float = 0.0, bn_frozen: bool = True):
         super().__init__()
-        self.bn_branch2a = BatchNorm2d(in_channels)
+        bn = partial(BatchNorm2d, frozen=bn_frozen, momentum=BN_MOM)
+        self.bn_branch2a = bn(in_channels)
         self.conv_branch1 = conv(in_channels, out_channels, 1, stride)
         self.conv_branch2a = conv(in_channels, out_channels // 4, 1, stride)
-        self.bn_branch2b1 = BatchNorm2d(out_channels // 4)
+        self.bn_branch2b1 = bn(out_channels // 4)
         self.dropout_2b1 = Dropout2d(dropout)
         self.conv_branch2b1 = conv(out_channels // 4, out_channels // 2, 3,
                                    dilation=dilation, padding=dilation)
-        self.bn_branch2b2 = BatchNorm2d(out_channels // 2)
+        self.bn_branch2b2 = bn(out_channels // 2)
         self.dropout_2b2 = Dropout2d(dropout)
         self.conv_branch2b2 = conv(out_channels // 2, out_channels, 1)
 
@@ -119,27 +130,29 @@ class ResNet38(nn.Module):
     """Backbone returning the {conv3, conv4, conv5, conv6} tap dict
     (resnet38d.py:160-189)."""
 
-    def __init__(self):
+    def __init__(self, bn_frozen: bool = True):
         super().__init__()
+        rb = partial(ResBlock, bn_frozen=bn_frozen)
+        rbb = partial(ResBlockBot, bn_frozen=bn_frozen)
         self.conv1a = conv(3, 64, 3, padding=1)
-        self.b2 = ResBlock(64, 128, 128, stride=2)
-        self.b2_1 = ResBlock(128, 128, 128)
-        self.b2_2 = ResBlock(128, 128, 128)
-        self.b3 = ResBlock(128, 256, 256, stride=2)
-        self.b3_1 = ResBlock(256, 256, 256)
-        self.b3_2 = ResBlock(256, 256, 256)
-        self.b4 = ResBlock(256, 512, 512, stride=2)
-        self.b4_1 = ResBlock(512, 512, 512)
-        self.b4_2 = ResBlock(512, 512, 512)
-        self.b4_3 = ResBlock(512, 512, 512)
-        self.b4_4 = ResBlock(512, 512, 512)
-        self.b4_5 = ResBlock(512, 512, 512)
-        self.b5 = ResBlock(512, 512, 1024, stride=1, first_dilation=1, dilation=2)
-        self.b5_1 = ResBlock(1024, 512, 1024, dilation=2)
-        self.b5_2 = ResBlock(1024, 512, 1024, dilation=2)
-        self.b6 = ResBlockBot(1024, 2048, dilation=4, dropout=0.3)
-        self.b7 = ResBlockBot(2048, 4096, dilation=4, dropout=0.5)
-        self.bn7 = BatchNorm2d(4096)
+        self.b2 = rb(64, 128, 128, stride=2)
+        self.b2_1 = rb(128, 128, 128)
+        self.b2_2 = rb(128, 128, 128)
+        self.b3 = rb(128, 256, 256, stride=2)
+        self.b3_1 = rb(256, 256, 256)
+        self.b3_2 = rb(256, 256, 256)
+        self.b4 = rb(256, 512, 512, stride=2)
+        self.b4_1 = rb(512, 512, 512)
+        self.b4_2 = rb(512, 512, 512)
+        self.b4_3 = rb(512, 512, 512)
+        self.b4_4 = rb(512, 512, 512)
+        self.b4_5 = rb(512, 512, 512)
+        self.b5 = rb(512, 512, 1024, stride=1, first_dilation=1, dilation=2)
+        self.b5_1 = rb(1024, 512, 1024, dilation=2)
+        self.b5_2 = rb(1024, 512, 1024, dilation=2)
+        self.b6 = rbb(1024, 2048, dilation=4, dropout=0.3)
+        self.b7 = rbb(2048, 4096, dilation=4, dropout=0.5)
+        self.bn7 = BatchNorm2d(4096, frozen=bn_frozen, momentum=BN_MOM)
 
     def forward(self, x: torch.Tensor,
                 valid_hw: torch.Tensor | None = None) -> dict[str, torch.Tensor]:

@@ -85,8 +85,11 @@ def _bicubic_weights_np(in_size: int, out_size: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=512)
 def _device_weights(make_weights, args: tuple, device: torch.device) -> torch.Tensor:
-    """One host->device copy per (matrix, device), reused by every call."""
-    return torch.from_numpy(make_weights(*args)).to(device)
+    """One host->device copy per (matrix, device), reused by every call. The
+    copy is a normal tensor even when the first call runs under
+    torch.inference_mode(), so a later training step can reuse it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(make_weights(*args)).to(device)
 
 
 def _separable(x: torch.Tensor, wh: torch.Tensor, ww: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,10 @@ network/resnet38_contrast.py:77-96):
   frozen        conv1a / b2* convs and every BN affine (resnet38d.py:192-214):
                 no update at all
 
+Stage 3 labels its parameters otherwise (`seg_label_params`): every conv of
+the backbone is pretrained, conv1a and b2* included, the head's convs are
+scratch, and only BN affine is frozen.
+
 lr schedule: base_lr * (1 - min(step, max_step) / max_step) ** power, step
 counted from 0 (torchutils.py:25-29).
 
@@ -23,6 +27,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from wseg_tpu_torch.models.layers import BatchNorm2d
 
 # label -> (lr multiplier, uses weight decay)
 GROUP_SPECS = {
@@ -55,11 +61,32 @@ def label_params(model: nn.Module) -> dict[str, str]:
     return labels
 
 
-def param_groups(model: nn.Module) -> list[dict]:
-    """One optimizer group per non-empty label, with its lr multiplier and
-    weight-decay switch. The frozen group is kept (its multiplier is 0), so a
-    state_dict covers every parameter."""
-    labels = label_params(model)
+def seg_label_params(model: nn.Module) -> dict[str, str]:
+    """Stage-3 group labels (seg_param_labels, wseg_tpu/seg/deeplab.py:349-377;
+    the reference's get_parameter_groups, deeplabv1.py:53-69): conv weights
+    and biases only. A parameter of a BatchNorm is frozen: the JAX package
+    tests whether any module name on the path contains "bn", which names
+    exactly its BNs; the port's Sequential BNs (`conv1.1`, `downsample.1`,
+    `aspp.branch1.1`) carry an index, so it tests the module's type. Every
+    other backbone parameter is pretrained, the head's are scratch."""
+    labels = {}
+    for mod_name, mod in model.named_modules():
+        for leaf, _ in mod.named_parameters(recurse=False):
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            if isinstance(mod, BatchNorm2d):
+                labels[name] = "frozen"
+                continue
+            kind = "pretrained" if mod_name.startswith("backbone.") else "scratch"
+            labels[name] = f"{kind}_{'b' if leaf == 'bias' else 'w'}"
+    return labels
+
+
+def param_groups(model: nn.Module, labels: dict[str, str] | None = None) -> list[dict]:
+    """One optimizer group per non-empty label (`labels`, by default stage
+    1-2's `label_params`), with its lr multiplier and weight-decay switch.
+    The frozen group is kept (its multiplier is 0), so a state_dict covers
+    every parameter."""
+    labels = label_params(model) if labels is None else labels
     groups = []
     for label, (mult, use_wd) in GROUP_SPECS.items():
         params = [p for n, p in model.named_parameters() if labels[n] == label]

@@ -4,8 +4,13 @@
   numpy arrays -> a state_dict with the reference's key names, conv kernels
   transposed HWIO -> OIHW. It inverts the JAX package's
   `convert_torch_state_dict` (wseg_tpu/utils/checkpoint.py:61-114).
+  `seg_state_dict_from_jax` does the same for the stage-3 nets, whose trunk
+  and head namespaces stay apart (`backbone/resnet38/b2/...` ->
+  `backbone.b2...`, `backbone/layer3_4/conv2` -> `backbone.layer3.4.conv2`).
 * `load_weights`: a reference `.pth` state_dict, or a JAX `.ckpt` file (flax
   msgpack of {'params', 'batch_stats'}), decoded here without flax.
+  `backbone_weights`: a stage-1 file as a stage-3 backbone (seg_train.py:
+  125-144 of the JAX package).
 * `merge_state_dict`: loaded weights laid over a model's own, keeping its
   init where a key is missing or its shape differs (a stage-1 net's weights
   into AffinityNet).
@@ -24,6 +29,7 @@ from __future__ import annotations
 
 import glob
 import os
+import re
 from collections.abc import Mapping
 
 import numpy as np
@@ -48,26 +54,69 @@ def _module_key(path: tuple) -> str:
     return ".".join(mods)
 
 
-def state_dict_from_jax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
-    """(params, batch_stats) trees of numpy arrays -> state_dict."""
+def _from_jax(params: Mapping, batch_stats: Mapping, module_key) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
     for path, val in _leaves(params):
         arr = np.array(val, dtype=np.float32)
         leaf = path[-1]
         if leaf == "kernel":
-            out[_module_key(path) + ".weight"] = torch.from_numpy(
+            out[module_key(path) + ".weight"] = torch.from_numpy(
                 np.ascontiguousarray(arr.transpose(3, 2, 0, 1)))
         elif leaf in _BN_LEAVES:
-            out[_module_key(path) + "." + _BN_LEAVES[leaf]] = torch.from_numpy(arr)
+            out[module_key(path) + "." + _BN_LEAVES[leaf]] = torch.from_numpy(arr)
         else:
             raise KeyError(f"unmapped JAX param {'/'.join(path)}")
     for path, val in _leaves(batch_stats):
         leaf = path[-1]
         if leaf not in _STAT_LEAVES:
             raise KeyError(f"unmapped JAX batch stat {'/'.join(path)}")
-        out[_module_key(path) + "." + _STAT_LEAVES[leaf]] = torch.from_numpy(
+        out[module_key(path) + "." + _STAT_LEAVES[leaf]] = torch.from_numpy(
             np.array(val, dtype=np.float32))
     return out
+
+
+def state_dict_from_jax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
+    """(params, batch_stats) trees of numpy arrays -> state_dict."""
+    return _from_jax(params, batch_stats, _module_key)
+
+
+# the JAX DilatedResNet's deep-base stem -> the reference's Sequential indices
+_SEG_STEM = {"conv1_0": "conv1.0", "conv1_bn0": "conv1.1", "conv1_1": "conv1.3",
+             "conv1_bn1": "conv1.4", "conv1_2": "conv1.6", "bn1": "bn1"}
+_SEG_BLOCK = {"conv1": "conv1", "bn1": "bn1", "conv2": "conv2", "bn2": "bn2",
+              "conv3": "conv3", "bn3": "bn3", "downsample_conv": "downsample.0",
+              "downsample_bn": "downsample.1"}
+_SEG_HEAD = ("conv_fov", "bn_fov", "conv_fov2", "bn_fov2", "cls_conv")
+
+
+def _seg_module_key(path: tuple) -> str:
+    mods = path[:-1]
+    key = None
+    if mods[:2] == ("backbone", "resnet38") and len(mods) > 2:
+        key = ".".join(("backbone",) + mods[2:])
+    elif mods[0] == "backbone" and len(mods) == 2 and mods[1] in _SEG_STEM:
+        key = "backbone." + _SEG_STEM[mods[1]]
+    elif mods[0] == "backbone" and len(mods) == 3 and mods[2] in _SEG_BLOCK:
+        m = re.fullmatch(r"(layer[1-4])_(\d+)", mods[1])
+        if m:
+            key = f"backbone.{m[1]}.{m[2]}.{_SEG_BLOCK[mods[2]]}"
+    elif mods[0] == "aspp" and len(mods) == 2 and mods[1] in ("branch5_conv", "branch5_bn"):
+        key = f"aspp.{mods[1]}"
+    elif (mods[0] == "aspp" and len(mods) == 3 and mods[2] in ("conv", "bn")
+          and re.fullmatch(r"branch[1-4]|conv_cat", mods[1])):
+        key = f"aspp.{mods[1]}.{0 if mods[2] == 'conv' else 1}"
+    elif len(mods) == 1 and mods[0] in _SEG_HEAD:
+        key = mods[0]
+    if key is None:
+        raise KeyError(f"unmapped JAX seg-net entry {'/'.join(path)}")
+    return key
+
+
+def seg_state_dict_from_jax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
+    """The stage-3 nets' (params, batch_stats) trees (DeepLab v1 / v2 on
+    ResNet-38 or a dilated ResNet) -> a state_dict with the reference's keys.
+    Raises KeyError on any entry it cannot map."""
+    return _from_jax(params, batch_stats, _seg_module_key)
 
 
 # flax.serialization's msgpack ext types (ndarray = 1, npscalar = 3); an ndarray
@@ -111,9 +160,10 @@ def read_flax_msgpack(path: str) -> dict:
     return tree
 
 
-def load_weights(path: str) -> dict[str, torch.Tensor]:
-    """A state_dict from a reference `.pth` or a JAX `.ckpt`. BatchNorm's
-    `num_batches_tracked` counters are dropped: the port's BN is frozen."""
+def load_weights(path: str, seg: bool = False) -> dict[str, torch.Tensor]:
+    """A state_dict from a reference `.pth` or a JAX `.ckpt` (of a stage-3
+    net with `seg`). BatchNorm's `num_batches_tracked` counters are dropped:
+    the port's BN keeps none."""
     if path.endswith(".pth"):
         state = torch.load(path, map_location="cpu", weights_only=True)
         if {"model", "optimizer", "generator"} <= state.keys():
@@ -122,8 +172,27 @@ def load_weights(path: str) -> dict[str, torch.Tensor]:
         return {k: v for k, v in state.items() if not k.endswith("num_batches_tracked")}
     if path.endswith(".ckpt"):
         tree = read_flax_msgpack(path)
-        return state_dict_from_jax(tree["params"], tree.get("batch_stats", {}))
+        convert = seg_state_dict_from_jax if seg else state_dict_from_jax
+        return convert(tree["params"], tree.get("batch_stats", {}))
     raise ValueError(f"unknown weights format (expected .pth or .ckpt): {path}")
+
+
+STAGE1_HEADS = ("fc8", "fc_proj", "f8_3", "f8_4", "f8_5", "f9")
+
+
+def backbone_weights(path: str) -> dict[str, torch.Tensor]:
+    """A stage-1 file (port or reference `.pth`, JAX `.ckpt`, params only or
+    not) as stage-3 backbone entries: keys under `backbone.`, the stage-1
+    heads dropped, and the drop reported."""
+    out, dropped = {}, set()
+    for key, val in load_weights(path).items():
+        top = key.split(".")[0]
+        if top in STAGE1_HEADS:
+            dropped.add(top)
+        else:
+            out[key if top == "backbone" else "backbone." + key] = val
+    print(f"dropped the stage-1 heads {sorted(dropped)} of {path}")
+    return out
 
 
 def merge_state_dict(init: Mapping[str, torch.Tensor], loaded: Mapping[str, torch.Tensor],

@@ -1,6 +1,7 @@
-"""Meters, a progress timer, a scalar event writer and the eval log writer
-(the parts of wseg_tpu/utils/logging.py that the ported CLIs use; reference
-tool/pyutils.py and eval.py:89-106). Standard library only."""
+"""Meters, a progress timer, a scalar and image event writer and the eval log
+writer (the parts of wseg_tpu/utils/logging.py that the ported CLIs use;
+reference tool/pyutils.py and eval.py:89-106). Standard library only, but
+numpy and PIL inside `add_image`."""
 
 from __future__ import annotations
 
@@ -55,11 +56,13 @@ class Timer:
 
 
 class ScalarWriter:
-    """Scalar events as JSON lines in `<logdir>/events.jsonl` (the JAX
-    package's format, without its optional tensorboardX mirror)."""
+    """Scalar events as JSON lines in `<logdir>/events.jsonl`, images as pngs
+    under `<logdir>/images/` (the JAX package's format, without its optional
+    tensorboardX mirror)."""
 
     def __init__(self, logdir: str):
         os.makedirs(logdir, exist_ok=True)
+        self._logdir = logdir
         self._path = os.path.join(logdir, "events.jsonl")
 
     def _write(self, rec: dict):
@@ -73,6 +76,27 @@ class ScalarWriter:
         rec = {"t": time.time(), "step": int(step)}
         rec.update({f"{main_tag}/{k}": float(v) for k, v in values.items()})
         self._write(rec)
+
+    def add_image(self, tag: str, img, step: int, dataformats: str = "HWC"):
+        """An image as `<logdir>/images/<tag>_<step>.png` and an event that
+        names it (logging.py:127-160 of the JAX package). `img` is uint8 or a
+        [0, 1] float array, HWC or CHW per `dataformats`."""
+        import numpy as np
+        from PIL import Image
+
+        arr = np.asarray(img)
+        if dataformats == "CHW":
+            arr = arr.transpose(1, 2, 0)
+        if arr.ndim == 3 and arr.shape[-1] == 1:
+            arr = arr[..., 0]
+        if arr.dtype != np.uint8:
+            arr = (np.clip(arr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+        img_dir = os.path.join(self._logdir, "images")
+        os.makedirs(img_dir, exist_ok=True)
+        safe = tag.replace("/", "_").replace(" ", "_")
+        path = os.path.join(img_dir, f"{safe}_{int(step):08d}.png")
+        Image.fromarray(arr).save(path)
+        self._write({"t": time.time(), "step": int(step), f"image/{tag}": path})
 
 
 def writedict(f, dictionary: dict):

@@ -48,18 +48,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
      off): ms/step, images/s, peak memory, a profiled step;
  14. the stage-2 CLI chain on a synthetic VOC root from random weights:
      contrast_infer --out_cam --out_crf, aff_prepare (5 alphas, host seconds
-     per image), aff_train (1 epoch, then a --resume'd epoch, from a
-     contrast state_dict), aff_infer; every png is checked.
+     per image) with the native CRF and with --crf_backend tpu (their argmax
+     labels' agreement printed), aff_train (1 epoch, then a --resume'd
+     epoch, from a contrast state_dict), aff_infer; every output is checked.
  15. stage-3 parity: one train-mode step (96x128, dropout off) of DeepLab v1
      / ResNet-38 (batch 2) and v2 / ResNet-101 (batch 4) at full width on the card
      (f32, TF32 off) against the same weights on the CPU: loss, parameters
      and running-stat updates; then each net's bucketed eval forward (two
      sizes in one 64-bucket) against the exact-shape forwards;
  16. DeepLab training at the presets' size (crop 448; v1 / ResNet-38 batch
-     10, cuDNN autotuned as seg_train runs it; v2 / ResNet-101 batch 12 on
-     cuDNN's heuristics, since its ~2 min of autotuning would not fit this
-     script's time limit), f32: ms/step, images/s, peak memory, device busy
-     and a profiled step;
+     10, v2 / ResNet-101 batch 12), f32, on cuDNN's heuristics (seg_train
+     autotunes, but its ~4 + 2 min of autotuning would not fit this
+     script's time limit): ms/step, images/s, peak memory, device busy and
+     a profiled step;
  17. seg_test's 6-scale x flip TTA at working size: 16 VOC-sized images in
      one 64-bucketed chunk through the CLI's own functions: a device pass
      with the CLI's cudnn.benchmark, a profiled pass, the host's upsamples,
@@ -67,12 +68,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
      then the CLI end to end on the same images;
  18. the stage-3 CLI chain on a synthetic seg root from random weights:
      seg_train (a contrast state_dict as the backbone, 1 epoch with a train
-     state, then a resumed epoch), seg_test (chunks of 4) with the CRF and
-     with --no_crf; every png, the eval log and the rate line are checked.
+     state, then a resumed epoch), seg_test (chunks of 4) with the native
+     CRF, with --crf_backend tpu and with --no_crf; every png, the eval log
+     and the rate line are checked;
+ 19. the accelerator CRF (ops/crf.py, --crf_backend tpu): (a) on the card
+     against the CPU at 128x160 x 21 labels (both methods; the CLIs' three
+     calls: aff_prepare's 5-alpha sweep, contrast_infer's label CRF,
+     seg_test's dense CRF; a smooth image and one with flat regions),
+     max |dQ| and argmax agreement gated, agreement with the native CRF
+     printed; (b) the three calls on phase 17's 16 VOC-sized images: ms an
+     image on the card's timeline and of the wall, peak memory, a profiled
+     image, beside the native CRF's host seconds an image.
 Stages 2 and 3 run no kernel of the port (stage 2's pair affinities, dense
 matrix and walk are plain PyTorch, as they are plain XLA in the JAX package;
-stage 3's convs are cuDNN's, as the JAX nets' are XLA's); phases 16 and 17
-check that neither K1 nor K2 launched.
+stage 3's convs are cuDNN's, as the JAX nets' are XLA's; the accelerator CRF
+is torch ops, as it is XLA ops there); phases 16, 17 and 19 check that
+neither K1 nor K2 launched.
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit; the last line is {"ok": true, "device": {...}}.
 Weights are random, from a seed; nothing is downloaded.
@@ -940,6 +951,11 @@ def phase_stage2_cli(card: str):
                           "--out_crf", "crf"])
         t_prep = time.perf_counter() - t0
         t["aff_prepare (5 alphas)"] = t_prep
+        t0 = time.perf_counter()
+        aff_prepare.main(["--infer_list", lst, "--voc12_root", root, "--cam_dir", "cam",
+                          "--out_crf", "crf_tpu", "--crf_backend", "tpu"])
+        t_tpu = time.perf_counter() - t0
+        t["aff_prepare --crf_backend tpu (5 alphas)"] = t_tpu
         common = ["--train_list", lst, "--voc12_root", root, "--batch_size", "2",
                   "--num_workers", "2", "--la_crf_dir", "crf/4.00", "--ha_crf_dir",
                   "crf/24.00", "--weights", contrast_pth, "--session_name", "smoke"]
@@ -960,16 +976,23 @@ def phase_stage2_cli(card: str):
         raise SystemExit("chip_smoke: non-finite AffinityNet weights after aff_train")
     check_pngs(base / "crf_png", names, sizes, "contrast_infer --out_crf")
     check_pngs(base / "rw", names, sizes, "aff_infer")
+    agree = []
     for alpha in ("4.00", "8.00", "16.00", "24.00", "32.00"):
         for name, (h, w) in zip(names, sizes):
             arr = np.load(base / "crf" / alpha / f"{name}.npy")
-            if arr.shape != (21, h, w) or not np.isfinite(arr).all():
-                raise SystemExit(f"chip_smoke: aff_prepare {alpha}/{name}: {arr.shape}")
+            acc = np.load(base / "crf_tpu" / alpha / f"{name}.npy")
+            for a in (arr, acc):
+                if a.shape != (21, h, w) or not np.isfinite(a).all():
+                    raise SystemExit(f"chip_smoke: aff_prepare {alpha}/{name}: {a.shape}")
+            agree.append(float((arr.argmax(0) == acc.argmax(0)).mean()))
     px = sum(h * w for h, w in sizes)
     print(f"{card} | stage-2 CLI chain on {len(names)} synthetic images ({px / len(names):.0f} "
           f"px each): " + "; ".join(f"{k} {v:.1f} s" for k, v in t.items())
           + f"; aff_prepare host {t_prep / len(names):.3f} s per image (5 alphas, "
-          f"{os.cpu_count()} cores, native CRF {px / len(names) / 1e6:.3f} MP)", flush=True)
+          f"{os.cpu_count()} cores, native CRF {px / len(names) / 1e6:.3f} MP), with "
+          f"--crf_backend tpu {t_tpu / len(names):.3f} s per image; tpu vs native argmax "
+          f"labels agree on {min(agree):.4f}-{max(agree):.4f} of the pixels (mean "
+          f"{np.mean(agree):.4f})", flush=True)
     shutil.rmtree(base, ignore_errors=True)
 
 
@@ -1100,19 +1123,19 @@ def time_steps(step, batch, timed: int):
 def phase_seg_train_working_size(card: str):
     """DeepLab training at the presets' working size, f32 (TF32 off), on
     device-resident random images and labels: SEAM v1 / ResNet-38 at crop
-    448, batch 10 (1 + 10 steps and a profiled one), cuDNN autotuned as in
-    the seg_train CLI; then EPS v2 / ResNet-101 at crop 448, batch 12 (1 + 3)
-    on cuDNN's heuristics: its first step's autotuning takes ~2 minutes
-    (PERF.md), which this script's time limit cannot hold. Its shapes recur
-    in no later phase, so the heuristic plans it caches reach no other
-    reading."""
+    448, batch 10 (1 + 3 steps and a profiled one), then EPS v2 / ResNet-101
+    at crop 448, batch 12 (1 + 3), both on cuDNN's heuristics: the seg_train
+    CLI autotunes, but the first step's autotuning takes ~4 minutes (v1) and
+    ~2 (v2) on an H100 (PERF.md), which this script's time limit cannot
+    hold beside the other phases. Their shapes recur in no later phase, so
+    the heuristic plans they cache reach no other reading."""
     from wseg_tpu_torch.train.optim import PolySGD, param_groups, seg_label_params
     from wseg_tpu_torch.train.seg import make_seg_train_step
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     pcm_cuda.reset_launches()
     conv_cuda.reset_launches()
-    for exp, timed, autotuned in (("SEAM_deeplabv1_resnet38", 10, True),
+    for exp, timed, autotuned in (("SEAM_deeplabv1_resnet38", 3, False),
                                   ("EPS_deeplabv2_resnet101", 3, False)):
         torch.backends.cudnn.benchmark = autotuned
         cfg = seg_cfg(exp)
@@ -1133,7 +1156,7 @@ def phase_seg_train_working_size(card: str):
               f"s), peak device memory {peak / 2**30:.2f} GiB; last loss {loss:.4f}", flush=True)
         if not np.isfinite(loss):
             raise SystemExit(f"chip_smoke: non-finite stage-3 training loss ({exp})")
-        if autotuned:
+        if exp == "SEAM_deeplabv1_resnet38":
             totals = profile_kernels(lambda: step(*batch))
             busy = sum(totals.values())
             print(f"{card} | profiled seg train step: device busy {busy:.1f} ms of {ms:.1f} ms "
@@ -1353,13 +1376,14 @@ def phase_seg_cli(card: str):
         raise SystemExit("chip_smoke: non-finite weights after seg_train")
     if torch.equal(sd["backbone.b7.conv_branch2a.weight"], contrast["b7.conv_branch2a.weight"]):
         raise SystemExit("chip_smoke: seg_train did not move the loaded backbone")
-    for crf in (True, False):
-        d = base / ("crf" if crf else "nocrf")
+    for tag, flags in (("CRF", []), ("--no_crf", ["--no_crf"]),
+                       ("--crf_backend tpu", ["--crf_backend", "tpu"])):
+        d = base / tag.strip("-").replace(" ", "_")
         d.mkdir()
         t0 = time.perf_counter()
         out = run_cli(d, seg_test.main, ["--data_root", voc, "--ckpt", pth, "--batch_size", "4"]
-                      + ([] if crf else ["--no_crf"]))
-        t[f"seg_test ({'CRF' if crf else '--no_crf'})"] = time.perf_counter() - t0
+                      + flags)
+        t[f"seg_test ({tag})"] = time.perf_counter() - t0
         check_pngs(d / "results" / "Segmentation" / "deeplabv1_val", names, sizes, "seg_test")
         log = (d / "log" / "SEAM_deeplabv1_resnet38" / "logfile.txt").read_text()
         if "mIoU:" not in log or "imgs/s end-to-end" not in out:
@@ -1367,6 +1391,186 @@ def phase_seg_cli(card: str):
     print(f"{card} | stage-3 CLI chain on {len(names)} synthetic images: "
           + "; ".join(f"{k} {v:.1f} s" for k, v in t.items()), flush=True)
     shutil.rmtree(base, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# the accelerator CRF (ops/crf.py, --crf_backend tpu)
+
+CRF_QTOL = 1e-3            # max |Q card - Q CPU|
+CRF_ARGMAX = 0.999         # argmax agreement, card vs CPU
+# argmax agreement with the native CRF, a loose sanity bound: at seg_test's
+# parameters the lowrank CRF (the JAX package's algorithm, which the port
+# matches within 1e-5) agrees with the exact dense CRF on 94.2-95.1% of the
+# pixels of 48x64 smooth synthetic images, the native lattice on 97.6-97.9%
+# (tests/test_torch_crf_accel.py), so tests/test_crf_tpu.py's 0.97 for two
+# labels does not hold here
+CRF_NATIVE_ARGMAX = 0.95
+
+
+def smooth_image(rng, h: int, w: int, flat: bool = False) -> np.ndarray:
+    """A photo-like uint8 image: a 12x16 random colour grid upsampled
+    (smooth), or with `flat` four flat colour blocks (sky, walls) and a
+    smooth strip."""
+    from PIL import Image
+
+    grid = Image.fromarray((rng.rand(12, 16, 3) * 255).astype(np.uint8))
+    img = np.asarray(grid.resize((w, h), Image.BICUBIC)).copy()
+    if flat:
+        for i, colour in enumerate([(200, 220, 250), (120, 120, 120), (60, 140, 40),
+                                    (230, 230, 225)]):
+            img[: h * 3 // 4, i * w // 4:(i + 1) * w // 4] = colour
+    return img
+
+
+def cam_dict_of(rng, h: int, w: int, n_cls: int = 3) -> dict:
+    """A cam dict of `n_cls` classes, as contrast_infer writes: smooth maps
+    in [0, 1] (upsampled random grids), zero over about half the image and
+    peaking in blobs, as a CAM does."""
+    from PIL import Image
+
+    keys = rng.choice(20, n_cls, replace=False)
+    cams = {}
+    for k in keys:
+        g = Image.fromarray((rng.rand(6, 8) * 255).astype(np.uint8))
+        g = np.asarray(g.resize((w, h), Image.BICUBIC), np.float32) / 255.0
+        cams[int(k)] = np.clip(2 * g - 1, 0, 1)
+    return cams
+
+
+def crf_inputs(rng, h: int, w: int, flat: bool = False):
+    """(image, the alpha sweep's 5 seeds, contrast_infer's seed, smooth
+    21-class probabilities) of one synthetic image, built as the CLIs build
+    them (infer/crf_post.py)."""
+    from wseg_tpu_torch.infer import crf_post
+
+    img = smooth_image(rng, h, w, flat)
+    cams = cam_dict_of(rng, h, w)
+    seeds = np.stack([crf_post._alpha_seed(cams, a) for a in (4, 8, 16, 24, 32)])
+    scores = crf_post._scores(cams)
+    scores[0] = 0.26
+    seed = np.argmax(scores, axis=0).astype(np.uint8)
+    # smooth at the pixel scale, as seg_test's are (stride-8 logits upsampled
+    # and averaged over 12 views); per-pixel logit noise of 0.5 made near-ties
+    # that the lowrank and the lattice CRF broke apart on 4% of the pixels
+    logits = scores * 6
+    e = np.exp(logits - logits.max(0, keepdims=True))
+    return img, seeds, seed, np.ascontiguousarray(e / e.sum(0, keepdims=True), np.float32)
+
+
+def crf_calls(method: str = "lowrank"):
+    """The three CRF calls of the CLIs, by name: (function of (inputs,
+    device) -> Q, the native CRF's function of inputs -> Q)."""
+    from wseg_tpu_torch.infer.crf_post import AFF_CRF_PARAMS, CAM_CRF_PARAMS
+    from wseg_tpu_torch.ops import crf
+    from wseg_tpu_torch.ops.densecrf import (
+        crf_inference_labels, crf_inference_labels_multi, dense_crf,
+    )
+
+    def seg(inp, device):
+        if method == "lowrank":
+            return crf.dense_crf_tpu(inp[3], inp[0], device=device)
+        return crf.crf_softmax_tpu(inp[0], inp[3], t=1, method=method, device=device,
+                                   sxy_gaussian=3, compat_gaussian=3, sxy_bilateral=32,
+                                   srgb=13, compat_bilateral=10)
+
+    return {
+        "aff_prepare sweep (A 5, t 10, sxy 80 / srgb 13)": (
+            lambda inp, dev: crf.crf_labels_tpu_batch(inp[0], inp[1], t=10, method=method,
+                                                      device=dev, **AFF_CRF_PARAMS),
+            lambda inp: crf_inference_labels_multi(inp[0], inp[1], t=10, **AFF_CRF_PARAMS)),
+        "contrast_infer (t 10, sxy 50 / srgb 5)": (
+            lambda inp, dev: crf.crf_labels_tpu(inp[0], inp[2], t=10, method=method,
+                                                device=dev, **CAM_CRF_PARAMS),
+            lambda inp: crf_inference_labels(inp[0], inp[2], t=10, **CAM_CRF_PARAMS)),
+        "seg_test dense_crf (t 1, sxy 32 / srgb 13)": (
+            seg, lambda inp: dense_crf(inp[3], inp[0])),
+    }
+
+
+def crf_parity(card: str):
+    """(a): the port's CRF on the card against the same call on the CPU at
+    128x160 x 21 labels, the CLIs' three calls: both methods on a smooth
+    image, the lowrank one on an image with flat regions. Max |dQ| and
+    argmax agreement are gated; the agreement with the native CRF is
+    printed and gated loosely."""
+    rng = np.random.RandomState(SEED + 19)
+    worst_q, worst_arg, worst_native = 0.0, 1.0, 1.0
+    for flat in (False, True):
+        inp = crf_inputs(rng, 128, 160, flat)
+        # the flat image is the Nystrom eigh's hard case; the grid has no eigh
+        for method in ("lowrank",) if flat else ("lowrank", "grid"):
+            for name, (fn, native_fn) in crf_calls(method).items():
+                got, want = fn(inp, "cuda"), fn(inp, "cpu")
+                dq = float(np.abs(got - want).max())
+                axis = got.ndim - 3
+                agree = float((got.argmax(axis) == want.argmax(axis)).mean())
+                native = float((got.argmax(axis) == native_fn(inp).argmax(axis)).mean())
+                worst_q, worst_arg = max(worst_q, dq), min(worst_arg, agree)
+                worst_native = min(worst_native, native)
+                print(f"{card} | CRF parity {'flat' if flat else 'smooth'} 128x160 {method} "
+                      f"{name}: max |dQ| card vs CPU {dq:.2e}, argmax agreement {agree:.5f}; "
+                      f"with the native CRF {native:.4f}", flush=True)
+    if worst_q > CRF_QTOL or worst_arg < CRF_ARGMAX or worst_native < CRF_NATIVE_ARGMAX:
+        raise SystemExit(f"chip_smoke: accelerator CRF parity failed: max |dQ| {worst_q:.2e} "
+                         f"(<= {CRF_QTOL}), argmax {worst_arg:.5f} (>= {CRF_ARGMAX}), native "
+                         f"{worst_native:.4f} (>= {CRF_NATIVE_ARGMAX})")
+
+
+CRF_NATIVE_IMAGES = 4  # of the 16: the native CRF's host seconds are read on these
+
+
+def crf_working_size(card: str):
+    """(b): the CLIs' three CRF calls on phase 17's 16 smooth VOC-sized
+    images (375x500 / 500x375, buckets 384x512 / 512x384): ms an image of
+    the card's timeline (CUDA events around each call) and of the wall,
+    peak memory, one profiled image's top kernels, and the native CRF's
+    host seconds an image on the first CRF_NATIVE_IMAGES of them."""
+    rng = np.random.RandomState(SEED + 17)
+    sizes = [(375, 500), (500, 375)] * 8
+    inputs = [crf_inputs(rng, h, w) for h, w in sizes]
+    for name, (fn, native_fn) in crf_calls().items():
+        fn(inputs[0], "cuda")
+        fn(inputs[1], "cuda")  # both buckets' factors built, the allocator warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev_ms, t0 = 0.0, time.perf_counter()
+        for inp in inputs:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            q = fn(inp, "cuda")
+            end.record()
+            end.synchronize()
+            ev_ms += start.elapsed_time(end)
+            if not np.isfinite(q).all():
+                raise SystemExit(f"chip_smoke: non-finite CRF output ({name})")
+        wall = (time.perf_counter() - t0) / len(inputs)
+        peak = torch.cuda.max_memory_allocated()
+        totals = profile_kernels(lambda: fn(inputs[0], "cuda"))
+        busy = sum(totals.values())
+        t0 = time.perf_counter()
+        for inp in inputs[:CRF_NATIVE_IMAGES]:
+            native_fn(inp)
+        native_s = (time.perf_counter() - t0) / CRF_NATIVE_IMAGES
+        print(f"{card} | CRF at working size, {name}: {ev_ms / len(inputs):.1f} ms an image "
+              f"on the card's timeline (CUDA events), {wall * 1e3:.1f} ms of wall; one "
+              f"profiled 375x500 image busy {busy:.1f} ms; peak device memory "
+              f"{peak / 2**30:.2f} GiB; native CRF {native_s:.3f} host s an image (1 thread, "
+              f"{CRF_NATIVE_IMAGES} of the {len(inputs)} images)", flush=True)
+        print_top(card, totals, k=6)
+
+
+def phase_crf(card: str):
+    """19. The accelerator CRF (ops/crf.py): (a) card vs CPU parity, (b) the
+    working size against the native CRF. (c), its CLIs, runs in phases 14
+    and 18. TF32 stays off for its matmuls; no port kernel launches."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("chip_smoke: TF32 is on for the CRF's matmuls")
+    pcm_cuda.reset_launches()
+    conv_cuda.reset_launches()
+    crf_parity(card)
+    crf_working_size(card)
+    if pcm_cuda.launches or conv_cuda.launches:
+        raise SystemExit("chip_smoke: the CRF unexpectedly launched a port kernel")
 
 
 def timed(name: str, fn, *args):
@@ -1399,6 +1603,7 @@ def main() -> int:
     timed("16 seg training", phase_seg_train_working_size, card)
     timed("17 seg_test TTA", phase_seg_test_working_size, card)
     timed("18 stage-3 CLI chain", phase_seg_cli, card)
+    timed("19 accelerator CRF", phase_crf, card)
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [pcm_row, conv_row]}))
     print(card)

@@ -173,14 +173,35 @@ def test_cli_outputs_match_jax(models, tmp_path):
     assert logs[0] == logs[1]
 
 
-def test_cli_rejects_crf_and_missing_gpu(tmp_path):
+def test_cli_rejects_crf_and_missing_gpu(models, tmp_path):
+    """contrast_infer --out_crf with the accelerator CRF (--crf_backend tpu)
+    on --device cpu: its pngs equal the JAX crf_from_cam_dict's tpu backend
+    on the same cam dicts and images. The GPU is the default: without one,
+    the CLI with the tpu backend raises before any work, as build_model
+    does."""
+    from wseg_tpu.infer.crf_post import crf_from_cam_dict
+    from wseg_tpu.utils.checkpoint import save_checkpoint
     from wseg_tpu_torch.cli import contrast_infer
+    from wseg_tpu_torch.data.voc12 import get_img_path
     from wseg_tpu_torch.models import build_model
 
-    # the accelerator CRF is not ported: it raises, with no native fallback
-    with pytest.raises(NotImplementedError, match="stage 2"):
-        contrast_infer.main(["--weights", "w.pth", "--out_crf", str(tmp_path), "--device", "cpu",
-                             "--crf_backend", "tpu"])
+    _, variables, _ = models
+    voc, lst, names = _synthetic_voc(tmp_path)
+    ckpt = str(tmp_path / "w.ckpt")
+    save_checkpoint(ckpt, variables)
+    out_cam, out_crf = tmp_path / "cam", tmp_path / "crf"
+    flags = ["--weights", ckpt, "--infer_list", lst, "--voc12_root", voc, "--out_crf",
+             str(out_crf), "--crf_iters", "3", "--crf_backend", "tpu"]
+    contrast_infer.main(flags + ["--out_cam", str(out_cam), "--device", "cpu"])
+    for name in names:
+        cam_dict = np.load(out_cam / f"{name}.npy", allow_pickle=True).item()
+        want = crf_from_cam_dict(cam_dict, get_img_path(name, voc),
+                                 str(tmp_path / "ref" / f"{name}.png"), t=3, backend="tpu")
+        got = np.asarray(Image.open(out_crf / f"{name}.png"))
+        assert got.dtype == np.uint8 and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
     if not torch.cuda.is_available():  # the default device is the GPU
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            contrast_infer.main(flags[:-2] + ["--crf_backend", "tpu"])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model("contrast")

@@ -95,13 +95,30 @@ def test_crf_post_equals_jax(cam_and_image, tmp_path):
 
 
 def test_accelerator_backend_raises(cam_and_image, tmp_path):
-    """backend "tpu" raises, naming the ROADMAP item; nothing falls back."""
+    """backend "tpu" runs the accelerator CRF on the device it is given: on
+    the CPU, the sweep's scores within 1e-4 of the JAX crf_post's tpu
+    backend with the same argmax, and the same png. On the default device
+    without a card it raises before any work; nothing falls back to the
+    native CRF. An unknown backend raises."""
+    import torch
+    from PIL import Image
+
     cam_dict, path = cam_and_image
-    out = str(tmp_path / "x.png")
-    for call in (lambda: tpost.crf_with_alpha_sweep(cam_dict, path, [4], backend="tpu"),
-                 lambda: tpost.crf_from_cam_dict(cam_dict, path, out, backend="tpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    assert not os.path.exists(out)
+    got = tpost.crf_with_alpha_sweep(cam_dict, path, [4, 24], t=3, backend="tpu", device="cpu")
+    want = jpost.crf_with_alpha_sweep(cam_dict, path, [4, 24], t=3, backend="tpu")
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and np.abs(g - w).max() <= 1e-4
+        np.testing.assert_array_equal(g.argmax(0), w.argmax(0))
+    out_t, out_j = str(tmp_path / "t.png"), str(tmp_path / "j.png")
+    tpost.crf_from_cam_dict(cam_dict, path, out_t, t=3, backend="tpu", device="cpu")
+    jpost.crf_from_cam_dict(cam_dict, path, out_j, t=3, backend="tpu")
+    np.testing.assert_array_equal(np.asarray(Image.open(out_t)), np.asarray(Image.open(out_j)))
+    if not torch.cuda.is_available():
+        out = str(tmp_path / "x.png")
+        for call in (lambda: tpost.crf_with_alpha_sweep(cam_dict, path, [4], backend="tpu"),
+                     lambda: tpost.crf_from_cam_dict(cam_dict, path, out, backend="tpu")):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+        assert not os.path.exists(out)
     with pytest.raises(ValueError, match="unknown CRF backend"):
         tpost.check_backend("gpu")

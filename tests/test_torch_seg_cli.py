@@ -138,15 +138,41 @@ def test_seg_test_reads_jax_ckpt(runs):
         np.testing.assert_array_equal(from_ckpt[name], from_pth[name])
 
 
-def test_seg_cli_guards(runs, tmp_path):
-    """The accelerator CRF raises before any work; without a GPU the default
-    device raises."""
+def test_seg_cli_guards(runs, tmp_path, monkeypatch):
+    """seg_test with the accelerator CRF (--crf_backend tpu) on --device
+    cpu: every CRF call's Q against the JAX package's dense_crf_tpu (what
+    its seg_test calls for the tpu backend) on the same probabilities and
+    image, within 1e-4 and with the same argmax, and each
+    png is its image's argmax. Without a GPU the default device raises,
+    with either CRF, before any work."""
+    from wseg_tpu.ops.crf import dense_crf_tpu as jax_dense_crf_tpu
     from wseg_tpu_torch.cli import seg_test, seg_train
+    from wseg_tpu_torch.ops import crf
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        seg_test.main(["--data_root", runs["voc"], "--ckpt", runs["pth"], "--crf_backend", "tpu"])
+    calls = []
+
+    def recording(probs, img, **kw):
+        q = dense_crf_tpu(probs, img, **kw)
+        calls.append((probs, img, q))
+        return q
+
+    dense_crf_tpu = crf.dense_crf_tpu
+    monkeypatch.setattr(crf, "dense_crf_tpu", recording)
+    _, pngs = _seg_test(os.path.join(runs["base"], "tpu"),
+                        ["--exp", EXP, "--data_root", runs["voc"], "--ckpt", runs["pth"],
+                         "--crf_backend", "tpu"])
+    assert len(calls) == len(SIZES) and sorted(pngs) == runs["names"]
+    by_shape = {q.shape[1:]: q for _, _, q in calls}
+    for probs, img, q in calls:
+        want = jax_dense_crf_tpu(probs, img)
+        assert q.shape == want.shape and np.abs(q - want).max() <= 1e-4
+        np.testing.assert_array_equal(q.argmax(0), want.argmax(0))
+    for (h, w), name in zip(SIZES, runs["names"]):
+        np.testing.assert_array_equal(pngs[name], by_shape[(h, w)].argmax(0))
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            seg_test.main(["--data_root", runs["voc"], "--ckpt", runs["pth"]])
+        for backend in ("native", "tpu"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                seg_test.main(["--data_root", runs["voc"], "--ckpt", runs["pth"],
+                               "--crf_backend", backend])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             _in(str(tmp_path), seg_train.main, ["--data_root", runs["voc"]])

@@ -77,29 +77,27 @@ def _keep_all(model):
             m.forward = (lambda x, s=1.0 / (1.0 - m.rate): x * s)
 
 
-@pytest.fixture(scope="module")
-def two_steps():
-    """Two steps of each package from the same weights, batch 2 at 48x64,
-    labels 0..20 with ~10% 255. Returns per-step (loss, params, stats) of
-    both and the initial trees."""
+def run_two_steps(jax_cfg, port_cfg, batch: int, seed: int = 7):
+    """Two steps of each package from the same weights, `batch` images at
+    48x64, labels 0..20 with ~10% 255. Returns per-step (loss, params,
+    stats) of both and the initial trees."""
     rng = np.random.RandomState(31)
     data = []
     for _ in range(2):
-        x = rng.randn(2, 48, 64, 3).astype(np.float32)
-        lab = rng.randint(0, 21, size=(2, 48, 64)).astype(np.int32)
+        x = rng.randn(batch, 48, 64, 3).astype(np.float32)
+        lab = rng.randint(0, 21, size=(batch, 48, 64)).astype(np.int32)
         lab[rng.rand(*lab.shape) < 0.1] = 255
         data.append((x, lab))
 
-    cfg = JAX_EXPERIMENTS["SEAM_deeplabv1_resnet38"]
-    jmodel = jax_generate_net(cfg)
-    variables = random_jax_variables(jmodel, (1, 48, 64, 3), seed=7)
+    jmodel = jax_generate_net(jax_cfg)
+    variables = random_jax_variables(jmodel, (1, 48, 64, 3), seed=seed)
     # a raw He-init cls_conv on 512 channels starts at CE ~ 13 where a step
     # amplifies rounding; scaled, the start is near ln(21) (the oracle's
     # contractive regime, test_seg_reference_oracle.py:602-611)
     variables["params"]["cls_conv"]["kernel"] = variables["params"]["cls_conv"]["kernel"] * 0.02
     params, stats = variables["params"], variables["batch_stats"]
 
-    tmodel = generate_net(EXPERIMENTS["SEAM_deeplabv1_resnet38"], device="cpu")
+    tmodel = generate_net(port_cfg, device="cpu")
     tmodel.load_state_dict(seg_state_dict_from_jax(params, stats), strict=True)
     _keep_all(tmodel)
     opt = PolySGD(param_groups(tmodel, seg_label_params(tmodel)), LR, WD, MAX_ITR + 1,
@@ -128,6 +126,13 @@ def two_steps():
     return dict(port=port, ref=ref, params=params, stats=stats, labels=seg_label_params(tmodel))
 
 
+@pytest.fixture(scope="module")
+def two_steps():
+    """DeepLab v1 / ResNet-38 at batch 2."""
+    return run_two_steps(JAX_EXPERIMENTS["SEAM_deeplabv1_resnet38"],
+                         EXPERIMENTS["SEAM_deeplabv1_resnet38"], batch=2)
+
+
 def _leaves(tree):
     for path, v in jax.tree_util.tree_leaves_with_path(tree):
         yield port_key(tuple(k.key for k in path)), np.asarray(v)
@@ -138,12 +143,50 @@ def _port_array(t):
     return t.transpose(2, 3, 1, 0) if t.ndim == 4 else t
 
 
+def check_loss(steps, i):
+    got, want = steps["port"][i][0], steps["ref"][i][0]
+    assert abs(got - want) <= 1e-6 * abs(want), (got, want)
+
+
+def check_params(steps, i):
+    """Every parameter within 1e-4 of its largest entry of the JAX
+    package's; the trained ones moved and BN affine did not, on both sides."""
+    sd = steps["port"][i][1]
+    init = dict(_leaves(steps["params"]))
+    moved = 0
+    for key, want in _leaves(steps["ref"][i][1]):
+        got = _port_array(sd[key])
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max(), key
+        if steps["labels"][key] == "frozen":
+            np.testing.assert_array_equal(got, init[key])
+            np.testing.assert_array_equal(want, init[key])
+        else:
+            moved += bool(np.abs(got - init[key]).max() > 0)
+    assert moved == sum(v != "frozen" for v in steps["labels"].values())
+
+
+def check_running_stats(steps, i) -> int:
+    """Each BN's running-stat update within 1e-4 of its largest entry plus
+    one float32 ulp of the stored value; returns the count of stats held."""
+    sd = steps["port"][i][1]
+    old_port = (dict(_leaves(steps["stats"])) if i == 0 else
+                {k: _port_array(v) for k, v in steps["port"][0][1].items()})
+    old_ref = dict(_leaves(steps["stats"] if i == 0 else steps["ref"][0][2]))
+    n = 0
+    for key, want in _leaves(steps["ref"][i][2]):
+        got_d, want_d = _port_array(sd[key]) - old_port[key], want - old_ref[key]
+        assert np.abs(want_d).max() > 0, key
+        ulp = np.spacing(np.abs(want).max())
+        assert np.abs(got_d - want_d).max() <= 1e-4 * np.abs(want_d).max() + ulp, key
+        n += 1
+    return n
+
+
 @pytest.mark.parametrize("i", [0, 1])
 def test_seg_train_step_loss_matches_jax(two_steps, i):
     """Step i's loss within 1e-6 relative (step 1 runs on step 0's weights,
     momentum and running stats)."""
-    got, want = two_steps["port"][i][0], two_steps["ref"][i][0]
-    assert abs(got - want) <= 1e-6 * abs(want), (got, want)
+    check_loss(two_steps, i)
 
 
 @pytest.mark.parametrize("i", [0, 1])
@@ -151,18 +194,7 @@ def test_seg_train_step_params_match_jax(two_steps, i):
     """After step i, every parameter within 1e-4 of its largest entry of the
     JAX package's; the trained ones moved (conv1a and b2* included) and BN
     affine did not, on both sides."""
-    sd = two_steps["port"][i][1]
-    init = dict(_leaves(two_steps["params"]))
-    moved = 0
-    for key, want in _leaves(two_steps["ref"][i][1]):
-        got = _port_array(sd[key])
-        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max(), key
-        if two_steps["labels"][key] == "frozen":
-            np.testing.assert_array_equal(got, init[key])
-            np.testing.assert_array_equal(want, init[key])
-        else:
-            moved += bool(np.abs(got - init[key]).max() > 0)
-    assert moved == sum(v != "frozen" for v in two_steps["labels"].values())
+    check_params(two_steps, i)
     for key in ("backbone.conv1a.weight", "backbone.b2.conv_branch2a.weight"):
         assert two_steps["labels"][key] == "pretrained_w"
 
@@ -175,18 +207,7 @@ def test_seg_train_step_running_stats_match_jax(two_steps, i):
     preset). The ulp is the storage's: at momentum 3e-4 an update is ~3e-4
     of a stat of magnitude ~1, so rounding the new value to float32 alone
     moves the update by up to ~4e-4 of itself (ROADMAP.md section 3)."""
-    sd = two_steps["port"][i][1]
-    old_port = (dict(_leaves(two_steps["stats"])) if i == 0 else
-                {k: _port_array(v) for k, v in two_steps["port"][0][1].items()})
-    old_ref = dict(_leaves(two_steps["stats"] if i == 0 else two_steps["ref"][0][2]))
-    n = 0
-    for key, want in _leaves(two_steps["ref"][i][2]):
-        got_d, want_d = _port_array(sd[key]) - old_port[key], want - old_ref[key]
-        assert np.abs(want_d).max() > 0, key
-        ulp = np.spacing(np.abs(want).max())
-        assert np.abs(got_d - want_d).max() <= 1e-4 * np.abs(want_d).max() + ulp, key
-        n += 1
-    assert n == 2 * 39
+    assert check_running_stats(two_steps, i) == 2 * 39
 
 
 def test_resize_weights_cached_in_inference_mode_train():

@@ -167,15 +167,32 @@ def test_aff_infer_matches_jax(chain):
 
 
 def test_cli_device_and_backend_guards(chain, tmp_path):
-    """The GPU is the default and its absence raises; the accelerator CRF
-    raises on every CLI that takes it, before any work."""
+    """aff_prepare's accelerator CRF (--crf_backend tpu) on --device cpu
+    against the JAX CLI's tpu output on the same cams: every alpha's scores
+    within 1e-4 and the same argmax. The GPU is the
+    default: without one, the tpu backend and the net CLIs raise before any
+    work."""
+    from wseg_tpu.cli import aff_prepare as jax_aff_prepare
     from wseg_tpu_torch.cli import aff_infer, aff_prepare, aff_train
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        aff_prepare.main(["--infer_list", chain["lst"], "--cam_dir", chain["cam"],
-                          "--out_crf", str(tmp_path / "x"), "--crf_backend", "tpu"])
-    assert not (tmp_path / "x").exists()
+    flags = ["--infer_list", chain["lst"], "--voc12_root", chain["voc"], "--cam_dir",
+             chain["cam"], "--crf_iters", "3", "--num_workers", "2", "--crf_backend", "tpu"]
+    got_dir, want_dir = tmp_path / "tpu", tmp_path / "ref_tpu"
+    aff_prepare.main(flags + ["--out_crf", str(got_dir), "--device", "cpu"])
+    jax_aff_prepare.main(flags + ["--out_crf", str(want_dir)])
+    assert sorted(os.listdir(got_dir)) == sorted(os.listdir(want_dir))
+    for alpha in os.listdir(want_dir):
+        for name, (h, w) in zip(chain["names"], SIZES):
+            got = np.load(got_dir / alpha / f"{name}.npy")
+            want = np.load(want_dir / alpha / f"{name}.npy")
+            assert got.shape == want.shape == (21, h, w) and got.dtype == np.float32
+            assert np.abs(got - want).max() <= 1e-4
+            np.testing.assert_array_equal(got.argmax(0), want.argmax(0))
     if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            aff_prepare.main(["--infer_list", chain["lst"], "--cam_dir", chain["cam"],
+                              "--out_crf", str(tmp_path / "x"), "--crf_backend", "tpu"])
+        assert not (tmp_path / "x").exists()
         with pytest.raises(RuntimeError, match="no CUDA device"):
             aff_infer.main(["--weights", chain["aff_pth"], "--cam_dir", chain["cam"],
                             "--infer_list", chain["lst"], "--voc12_root", chain["voc"]])

@@ -1,7 +1,7 @@
 """AffinityNet training CLI (counterpart of wseg_tpu/cli/aff_train.py,
 flag-compatible with the reference `aff_train.py`).
 
-    python -m wseg_tpu_torch.cli.aff_train --weights contrast.pth|.ckpt \\
+    python -m wseg_tpu_torch.cli.aff_train --weights contrast.pth|.ckpt|.params \\
         --voc12_root VOC2012 --la_crf_dir crf/4.00 --ha_crf_dir crf/24.00
 
 One float32 step a batch (train/affinity.py; TF32 off) on the GPU unless
@@ -10,14 +10,17 @@ shape or missing ones keep their init (utils/checkpoint.py:
 merge_state_dict). The input pipeline is epoch-indexed, so `--resume <train
 state> --start_epoch k` continues the run that a kill after epoch k - 1
 interrupted, step for step. Writes `result/<session_name>/aff_train.pth`
-(the resumable state, with `--save_every_epoch`) and
-`result/<session_name>/aff.pth` (weights with the reference's key names).
+(the resumable state, with `--save_every_epoch`),
+`result/<session_name>/aff.pth` (weights with the reference's key names) and
+the run's stdout to `result/<session_name>/aff.log`.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+WEIGHTS = "aff.pth"  # result/<session_name>/<WEIGHTS>: the run's final weights
 
 
 def collate(samples):
@@ -41,7 +44,8 @@ def main(argv=None):
     parser.add_argument("--session_name", default="resnet38", type=str)
     parser.add_argument("--crop_size", default=448, type=int)
     parser.add_argument("--weights", default="", type=str,
-                        help=".pth state_dict or JAX .ckpt, e.g. a stage-1 net's; entries "
+                        help=".pth state_dict, JAX .ckpt or ImageNet .params, e.g. a stage-1 "
+                        "net's; entries "
                         "that are missing or of another shape keep their init")
     parser.add_argument("--voc12_root", default="VOC2012", type=str)
     parser.add_argument("--la_crf_dir", required=True, type=str)
@@ -68,6 +72,13 @@ def main(argv=None):
             "train from init weights with a misleading global_step/lr; pass --resume "
             "<train state> (or drop --start_epoch).")
 
+    from wseg_tpu_torch.utils.logging import Logger
+
+    with Logger(os.path.join("result", args.session_name, "aff.log")):
+        _train(args)
+
+
+def _train(args):
     import random
 
     import numpy as np
@@ -161,7 +172,7 @@ def main(argv=None):
                   "weights (kill emulation)")
             return
 
-    out = os.path.join(out_dir, "aff.pth")
+    out = os.path.join(out_dir, WEIGHTS)
     save_weights(out, model)
     print(f"saved {out}")
 

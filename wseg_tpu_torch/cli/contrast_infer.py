@@ -2,9 +2,10 @@
 flag-compatible with the reference `contrast_infer.py`).
 
 Writes per image: `--out_cam` {cls: cam}.npy dicts, `--out_cam_pred`
-argmax pngs with a constant bg score and `--out_crf` CRF'd argmax pngs (the
-host's native CRF, on `--num_workers` threads beside the device work). Runs
-on the GPU unless `--device cpu`.
+argmax pngs with a constant bg score and `--out_crf` CRF'd argmax pngs
+(beside the CAM work: the host's native CRF on `--num_workers` threads, or
+with `--crf_backend tpu` the accelerator CRF on `--device` from one thread).
+Runs on the GPU unless `--device cpu`.
 
     python -m wseg_tpu_torch.cli.contrast_infer --weights W.pth|W.ckpt \\
         --infer_list voc12/train.txt --voc12_root VOC2012 --out_cam out_cam
@@ -30,7 +31,9 @@ def main(argv=None):
     parser.add_argument("--out_cam_pred", default=None, type=str)
     parser.add_argument("--out_cam_pred_alpha", default=0.26, type=float)
     parser.add_argument("--crf_iters", default=10, type=int)
-    parser.add_argument("--crf_backend", default="native", choices=["native", "tpu"])
+    parser.add_argument("--crf_backend", default="native", choices=["native", "tpu"],
+                        help="native = the C++ permutohedral CRF on host threads; tpu = the "
+                        "accelerator CRF (ops/crf.py) on --device")
     parser.add_argument("--bucket", default=64, type=int,
                         help="pad H/W to multiples (masked forward); 0 = exact shapes")
     parser.add_argument("--device_msf", action="store_true",
@@ -53,6 +56,10 @@ def main(argv=None):
 
     check_backend(args.crf_backend)
     model = build_model(args.network, device=args.device)
+    if args.crf_backend == "tpu":
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False  # the CRF's matmuls stay f32
     model.load_state_dict(load_weights(args.weights), strict=True)
 
     dataset = VOC12ClsDatasetMSF(args.infer_list, args.voc12_root)
@@ -79,13 +86,15 @@ def main(argv=None):
             crf_futures.append(crf_pool.submit(
                 crf_from_cam_dict, cam_dict, get_img_path(name, args.voc12_root),
                 os.path.join(args.out_crf, name + ".png"), t=args.crf_iters,
-                backend=args.crf_backend))
+                backend=args.crf_backend, device=args.device))
 
     # host-side decode and view scaling run ahead of the device work in a
     # bounded window of threads (PIL releases the GIL); the native CRF runs on
-    # its own pool (it releases the GIL too)
+    # its own pool (it releases the GIL too); the tpu CRF's calls serialise on
+    # the device, so one thread overlaps its host side (padding, the png)
+    crf_workers = 1 if args.crf_backend == "tpu" else max(args.num_workers, 1)
     with ThreadPoolExecutor(max_workers=4) as pool, \
-            ThreadPoolExecutor(max_workers=max(args.num_workers, 1)) as crf_pool:
+            ThreadPoolExecutor(max_workers=crf_workers) as crf_pool:
         window = max(4, batch_size)
         pending = deque(pool.submit(prepare, i) for i in range(min(window, len(dataset))))
         done = 0

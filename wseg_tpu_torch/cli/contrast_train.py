@@ -1,22 +1,28 @@
 """Stage-1 training CLI (counterpart of wseg_tpu/cli/contrast_train.py,
 flag-compatible with the reference `contrast_train.py`).
 
-    python -m wseg_tpu_torch.cli.contrast_train --weights W.pth|W.ckpt \\
+    python -m wseg_tpu_torch.cli.contrast_train --weights W.params|W.pth|W.ckpt \\
         --voc12_root VOC2012 [--device cpu]
 
 One dual-view step a batch (train/contrast.py) on the GPU unless `--device
 cpu`; a thread-pool input pipeline with epoch-indexed shuffle and per-sample
 augmentation seeds, so `--resume <train state> --start_epoch k` continues
-the run that a kill after epoch k - 1 interrupted, step for step. Writes
+the run that a kill after epoch k - 1 interrupted, step for step.
+`--weights` is laid over the seeded init (a trunk-only file, such as the
+ImageNet `.params`, leaves the heads at init). Writes
 `result/<session_name>/contrast_train.pth` (the resumable state, with
-`--save_every_epoch`) and `result/<session_name>/contrast.pth` (weights with
-the reference's key names) at the end.
+`--save_every_epoch`), `result/<session_name>/contrast.pth` (weights with
+the reference's key names) at the end, and the run's stdout to
+`result/<session_name>/contrast.log`; `--profile_dir` traces steps 10-14.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+
+WEIGHTS = "contrast.pth"  # result/<session_name>/<WEIGHTS>: the run's final weights
 
 
 def main(argv=None):
@@ -38,7 +44,8 @@ def main(argv=None):
                         help="RandomResizeLong range (contrast_train.py:66)")
     parser.add_argument("--max_long", default=768, type=int)
     parser.add_argument("--weights", default="", type=str,
-                        help="reference .pth state_dict or JAX .ckpt; every key must match")
+                        help="ImageNet .params, reference .pth state_dict or JAX .ckpt; "
+                        "entries that are missing or of another shape keep their init")
     parser.add_argument("--voc12_root", default="VOC2012", type=str)
     parser.add_argument("--tblog_dir", default="./tblog", type=str)
     parser.add_argument("--bg_threshold", default=0.20, type=float)
@@ -46,6 +53,8 @@ def main(argv=None):
                         help="SGD momentum; the reference-equivalent default "
                         "(see train/optim.py)")
     parser.add_argument("--seed", default=1, type=int)
+    parser.add_argument("--profile_dir", default="", type=str,
+                        help="write a torch.profiler Chrome trace of steps 10-14 here")
     parser.add_argument("--save_every_epoch", action="store_true",
                         help="save the resumable train state after every epoch "
                         "(the reference saves only at the end)")
@@ -72,6 +81,13 @@ def main(argv=None):
             "train from init weights with a misleading global_step/lr; pass --resume "
             "<train state> (or drop --start_epoch).")
 
+    from wseg_tpu_torch.utils.logging import Logger
+
+    with Logger(os.path.join("result", args.session_name, "contrast.log")):
+        _train(args)
+
+
+def _train(args):
     import random
 
     import numpy as np
@@ -83,10 +99,11 @@ def main(argv=None):
     from wseg_tpu_torch.train.contrast import make_train_step
     from wseg_tpu_torch.train.optim import PolySGD, param_groups
     from wseg_tpu_torch.utils.checkpoint import (
-        load_train_state, load_weights, save_train_state, save_weights,
+        load_train_state, load_weights, merge_state_dict, save_train_state, save_weights,
     )
     from wseg_tpu_torch.utils.device import resolve_device
     from wseg_tpu_torch.utils.logging import AverageMeter, ScalarWriter, Timer
+    from wseg_tpu_torch.utils.profiling import annotate, trace
 
     random.seed(args.seed)  # host-side augmentation without det_seed
     np.random.seed(args.seed)
@@ -96,7 +113,9 @@ def main(argv=None):
     model = build_model(args.network, device=device,
                         generator=torch.Generator().manual_seed(args.seed))
     if args.weights:
-        model.load_state_dict(load_weights(args.weights), strict=True)
+        model.load_state_dict(merge_state_dict(model.state_dict(), load_weights(args.weights),
+                                               what=f"pretrained weights from {args.weights}"),
+                              strict=True)
         print(f"loaded pretrained weights from {args.weights}")
     tblogger = ScalarWriter(args.tblog_dir)
 
@@ -130,12 +149,18 @@ def main(argv=None):
     timer = Timer("Session started: ")
     pending = []  # device metric dicts, read only at the 50-step print: reading syncs
 
+    profiler = contextlib.ExitStack()  # the trace of steps 10-14, closed by step 15 or the end
     for ep in range(args.start_epoch, args.max_epoches):
         loader.set_epoch(ep)
         for it, (_, imgs, labels) in enumerate(loader):
+            if args.profile_dir and global_step == 10:
+                profiler.enter_context(trace(args.profile_dir))
+            if global_step == 15:
+                profiler.close()
             imgs = torch.as_tensor(imgs).to(device, non_blocking=True)
             labels = torch.as_tensor(labels).to(device, non_blocking=True)
-            metrics = step_fn(imgs.permute(0, 3, 1, 2), labels)  # NHWC -> NCHW view
+            with annotate("train_step"):
+                metrics = step_fn(imgs.permute(0, 3, 1, 2), labels)  # NHWC -> NCHW view
             global_step += 1
 
             pending.append(metrics)
@@ -171,10 +196,12 @@ def main(argv=None):
         if args.stop_after_epoch and ep + 1 >= args.stop_after_epoch:
             print(f"stop_after_epoch={args.stop_after_epoch}: exiting without final "
                   "weights (kill emulation)")
+            profiler.close()
             return
+    profiler.close()  # a run that ends inside the window writes its trace too
 
     print(args.session_name)
-    out = os.path.join(out_dir, "contrast.pth")
+    out = os.path.join(out_dir, WEIGHTS)
     save_weights(out, model)
     print(f"saved {out}")
 

@@ -1,6 +1,7 @@
 """Stage-3 DeepLab testing CLI (counterpart of wseg_tpu/cli/seg_test.py;
 reference segmentation/experiment/*/test.py:40-113): 6-scale x flip TTA,
-the native dense CRF, mIoU eval.
+the dense CRF (the host's native one, or with `--crf_backend tpu` the
+accelerator CRF on the model's device), mIoU eval.
 
     python -m wseg_tpu_torch.cli.seg_test --exp SEAM_deeplabv1_resnet38 \\
         --data_root VOC2012 --ckpt model/.../deeplabv1_resnet38_VOCDataset_itr20000_all.pth
@@ -18,6 +19,7 @@ mIoU in `log/<exp>/logfile.txt`.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import time
 
@@ -116,7 +118,8 @@ def main(argv=None):
     parser.add_argument("--no_crf", action="store_true")
     parser.add_argument("--crf_backend", default="native", choices=["native", "tpu"],
                         help="native = the C++ permutohedral CRF on a host thread pool; tpu "
-                        "(the accelerator CRF) is not ported yet and raises")
+                        "= the accelerator CRF (ops/crf.py) on --device, called from the "
+                        "same pool")
     parser.add_argument("--bucket", type=int, default=64)
     parser.add_argument("--batch_size", type=int, default=0,
                         help=f"images per TTA chunk; 0 = {BATCH}")
@@ -132,6 +135,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
+    from wseg_tpu_torch.ops.crf import dense_crf_tpu
     from wseg_tpu_torch.ops.densecrf import dense_crf
     from wseg_tpu_torch.seg.config import EXPERIMENTS
     from wseg_tpu_torch.seg.dataset import generate_dataset
@@ -144,6 +148,8 @@ def main(argv=None):
     if args.no_crf:
         cfg = cfg.replace(TEST_CRF=False)
     device = resolve_device(args.device)
+    crf = functools.partial(dense_crf_tpu, device=device) if args.crf_backend == "tpu" \
+        else dense_crf
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -166,9 +172,8 @@ def main(argv=None):
         prob = fuse_views(views, (sample["row"], sample["col"]), n_views, cfg.MODEL_NUM_CLASSES)
         if cfg.TEST_CRF:
             # the reference's seg parameterisation: bilateral sxy 32, 1 iteration
-            prob = dense_crf(np.ascontiguousarray(prob.transpose(2, 0, 1)),
-                             dataset.load_image(sample["name"]),
-                             n_classes=cfg.MODEL_NUM_CLASSES)
+            prob = crf(np.ascontiguousarray(prob.transpose(2, 0, 1)),
+                       dataset.load_image(sample["name"]), n_classes=cfg.MODEL_NUM_CLASSES)
             pred = np.argmax(prob, axis=0).astype(np.uint8)
         else:
             pred = np.argmax(prob, axis=-1).astype(np.uint8)

@@ -11,7 +11,8 @@ One float32 step a batch (train/seg.py; TF32 off) on the GPU unless
 `model/<exp>/<model>_<backbone>_<data>_epoch<e>.pth` each epoch (removing the
 previous epoch's) and `..._itr<N>_all.pth` at the end, state_dicts with the
 reference's keys; with `--save_state` also `seg_train_state.pth` each epoch,
-which `--resume` with `--min_epoch` continues step for step.
+which `--resume` with `--min_epoch` continues step for step. The run's stdout
+goes to `log/<exp>/train.log` as well.
 """
 
 from __future__ import annotations
@@ -61,26 +62,9 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
-    import random
-
-    import numpy as np
-    import torch
-
-    from wseg_tpu_torch.data.loader import DataLoader
     from wseg_tpu_torch.seg.config import EXPERIMENTS
-    from wseg_tpu_torch.seg.dataset import generate_dataset
-    from wseg_tpu_torch.seg.deeplab import generate_net
-    from wseg_tpu_torch.train.optim import PolySGD, param_groups, seg_label_params
-    from wseg_tpu_torch.train.seg import make_seg_train_step
-    from wseg_tpu_torch.utils.checkpoint import (
-        backbone_weights, load_train_state, load_weights, merge_state_dict, save_train_state,
-        save_weights,
-    )
     from wseg_tpu_torch.utils.device import resolve_device
-    from wseg_tpu_torch.utils.logging import ScalarWriter, Timer
-
-    random.seed(args.seed)
-    np.random.seed(args.seed)
+    from wseg_tpu_torch.utils.logging import Logger
 
     cfg = EXPERIMENTS[args.exp].replace(DATA_ROOT=args.data_root)
     if args.pseudo_gt:
@@ -109,11 +93,42 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     os.makedirs(cfg.MODEL_SAVE_DIR, exist_ok=True)
+    with Logger(os.path.join(cfg.LOG_DIR, "train.log")):
+        _train(args, cfg, device)
+
+
+def weights_path(cfg, tag: str) -> str:
+    """model/<exp>/<model>_<backbone>_<data>_<tag>.pth; a run's final
+    weights are tagged `itr<N>_all`."""
+    return os.path.join(cfg.MODEL_SAVE_DIR,
+                        f"{cfg.MODEL_NAME}_{cfg.MODEL_BACKBONE}_{cfg.DATA_NAME}_{tag}.pth")
+
+
+def _train(args, cfg, device):
+    import random
+
+    import numpy as np
+    import torch
+
+    from wseg_tpu_torch.data.loader import DataLoader
+    from wseg_tpu_torch.seg.dataset import generate_dataset
+    from wseg_tpu_torch.seg.deeplab import generate_net
+    from wseg_tpu_torch.train.optim import PolySGD, param_groups, seg_label_params
+    from wseg_tpu_torch.train.seg import make_seg_train_step
+    from wseg_tpu_torch.utils.checkpoint import (
+        backbone_weights, load_train_state, load_weights, merge_state_dict, save_train_state,
+        save_weights,
+    )
+    from wseg_tpu_torch.utils.logging import ScalarWriter, Timer
+
+    random.seed(args.seed)
+    np.random.seed(args.seed)
     print(cfg)
 
     dataset = generate_dataset(cfg, period="train", transform="weak", det_seed=args.seed)
     loader = DataLoader(dataset, cfg.TRAIN_BATCHES, num_workers=cfg.DATA_WORKERS,
-                        seed=args.seed, pin_memory=device.type == "cuda", collate=collate)
+                        seed=args.seed, pin_memory=device.type == "cuda", collate=collate,
+                        shuffle=cfg.TRAIN_SHUFFLE)
 
     model = generate_net(cfg, device=device, generator=torch.Generator().manual_seed(args.seed))
     if cfg.MODEL_BACKBONE_WEIGHTS:
@@ -145,10 +160,6 @@ def main(argv=None):
         # one autotune for the one crop shape, as aff_train: cuDNN's heuristic
         # made stage 2's f32 step 5.3x slower on an H100 (PERF.md)
         torch.backends.cudnn.benchmark = True
-
-    def ckpt_path(tag: str) -> str:
-        return os.path.join(cfg.MODEL_SAVE_DIR,
-                            f"{cfg.MODEL_NAME}_{cfg.MODEL_BACKBONE}_{cfg.DATA_NAME}_{tag}.pth")
 
     tblogger = ScalarWriter(cfg.LOG_DIR)
     timer = Timer("Seg train started: ")
@@ -183,11 +194,11 @@ def main(argv=None):
             if itr >= max_itr:
                 done = True
                 break
-        ckpt = ckpt_path(f"epoch{epoch}")
+        ckpt = weights_path(cfg, f"epoch{epoch}")
         save_weights(ckpt, model)
         print(f"{ckpt} has been saved")
-        if os.path.exists(ckpt_path(f"epoch{epoch - 1}")):
-            os.remove(ckpt_path(f"epoch{epoch - 1}"))
+        if os.path.exists(weights_path(cfg, f"epoch{epoch - 1}")):
+            os.remove(weights_path(cfg, f"epoch{epoch - 1}"))
         if args.save_state:
             st = os.path.join(cfg.MODEL_SAVE_DIR, "seg_train_state.pth")
             save_train_state(st, model, optimizer, itr, generator)
@@ -198,7 +209,7 @@ def main(argv=None):
                   "checkpoint (kill emulation)")
             return
 
-    final = ckpt_path(f"itr{max_itr}_all")
+    final = weights_path(cfg, f"itr{max_itr}_all")
     save_weights(final, model)
     print(f"{final} has been saved")
 

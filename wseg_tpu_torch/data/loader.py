@@ -27,14 +27,15 @@ def collate(samples):
 
 
 class DataLoader:
-    """Shuffled batches of `batch_size` (the last partial batch is dropped),
-    each the dataset's items combined by `collate`, fetched `num_workers` at
-    a time."""
+    """Batches of `batch_size` (the last partial batch is dropped), in a
+    shuffled order or, with `shuffle=False`, in the dataset's, each the
+    dataset's items combined by `collate`, fetched `num_workers` at a time."""
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 8, seed: int = 1,
-                 pin_memory: bool = False, collate=collate):
+                 pin_memory: bool = False, collate=collate, shuffle: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.num_workers = num_workers
         self.seed = seed
         self.pin_memory = pin_memory
@@ -63,8 +64,10 @@ class DataLoader:
 
     def __iter__(self):
         order = list(range(len(self.dataset)))
-        rng = random.Random(f"{self.seed}:{self._epoch}") if self._epoch is not None else self._rng
-        rng.shuffle(order)
+        if self.shuffle:
+            rng = (random.Random(f"{self.seed}:{self._epoch}") if self._epoch is not None
+                   else self._rng)
+            rng.shuffle(order)
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size] for i in range(len(self))]
 
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:

@@ -10,9 +10,11 @@
   (21, H, W) scores. `crf_with_alpha_sweep` runs a list of alphas for one
   image, sharing its lattice builds.
 
-backend "native" is the C++ permutohedral CRF (ops/densecrf.py). The JAX
-package's accelerator CRF (backend "tpu", wseg_tpu/ops/crf.py) is not
-ported yet: asking for it raises, and nothing falls back to native.
+backend "native" is the C++ permutohedral CRF (ops/densecrf.py) on the
+host. Backend "tpu" (the JAX package's name for it) is the accelerator CRF
+(ops/crf.py: Nystrom colour x SVD-factored spatial Gaussian) on `device`,
+the CUDA card unless the caller asks for the CPU; the alpha sweep is one
+batched call an image. Neither falls back to the other.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import os
 import numpy as np
 
 from wseg_tpu_torch.infer.cam import write_png
+from wseg_tpu_torch.ops.crf import crf_labels_tpu, crf_labels_tpu_batch
 from wseg_tpu_torch.ops.densecrf import crf_inference_labels, crf_inference_labels_multi
 
 AFF_CRF_PARAMS = dict(  # AdvCAM's parameterisation, aff_prepare.py:34-50
@@ -36,12 +39,8 @@ BACKENDS = ("native", "tpu")
 
 
 def check_backend(backend: str):
-    """Raise unless `backend` is the ported native CRF."""
-    if backend == "tpu":
-        raise NotImplementedError(
-            "the accelerator CRF (crf_backend 'tpu', wseg_tpu/ops/crf.py) is not ported yet "
-            "(ROADMAP stage 2: ops/crf.py); use crf_backend 'native'")
-    if backend != "native":
+    """Raise unless `backend` names a CRF."""
+    if backend not in BACKENDS:
         raise ValueError(f"unknown CRF backend {backend!r}; expected one of {BACKENDS}")
 
 
@@ -62,15 +61,20 @@ def _scores(cam_dict: dict, n_labels: int = 21) -> np.ndarray:
 
 
 def crf_from_cam_dict(cam_dict: dict, img_path: str, out_path: str, bg_score: float = 0.26,
-                      t: int = 10, gt_prob: float = 0.7, backend: str = "native") -> np.ndarray:
+                      t: int = 10, gt_prob: float = 0.7, backend: str = "native",
+                      device: str = "cuda") -> np.ndarray:
     """The CRF'd argmax (H, W) uint8 of one cam dict, also written to
-    `out_path` as a png."""
+    `out_path` as a png. `device` is the tpu backend's."""
     check_backend(backend)
     tensor = _scores(cam_dict)
     tensor[0] = bg_score
     predict = np.argmax(tensor, axis=0).astype(np.uint8)
-    crf_score = crf_inference_labels(_load_rgb(img_path), predict, t=t, gt_prob=gt_prob,
-                                     **CAM_CRF_PARAMS)
+    if backend == "tpu":
+        crf_score = crf_labels_tpu(_load_rgb(img_path), predict, t=t, gt_prob=gt_prob,
+                                   device=device, **CAM_CRF_PARAMS)
+    else:
+        crf_score = crf_inference_labels(_load_rgb(img_path), predict, t=t, gt_prob=gt_prob,
+                                         **CAM_CRF_PARAMS)
     pred = np.argmax(crf_score, axis=0).astype(np.uint8)
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     write_png(out_path, pred)
@@ -86,17 +90,23 @@ def _alpha_seed(cam_dict: dict, alpha: float) -> np.ndarray:
 
 
 def crf_with_alpha(cam_dict: dict, img_path: str, alpha: float, t: int = 10,
-                   gt_prob: float = 0.7, backend: str = "native") -> np.ndarray:
+                   gt_prob: float = 0.7, backend: str = "native",
+                   device: str = "cuda") -> np.ndarray:
     """(21, H, W) CRF scores of one image at background alpha `alpha`."""
-    return crf_with_alpha_sweep(cam_dict, img_path, [alpha], t, gt_prob, backend)[0]
+    return crf_with_alpha_sweep(cam_dict, img_path, [alpha], t, gt_prob, backend, device)[0]
 
 
 def crf_with_alpha_sweep(cam_dict: dict, img_path: str, alphas, t: int = 10,
-                         gt_prob: float = 0.7, backend: str = "native") -> list[np.ndarray]:
-    """[(21, H, W) CRF scores for each alpha] of one image: the alphas share
-    the image's lattice builds (one instead of one per alpha), bit-identical
-    to `crf_with_alpha` per alpha."""
+                         gt_prob: float = 0.7, backend: str = "native",
+                         device: str = "cuda") -> list[np.ndarray]:
+    """[(21, H, W) CRF scores for each alpha] of one image. Native: the
+    alphas share the image's lattice builds, bit-identical to
+    `crf_with_alpha` per alpha. tpu: one batched call on `device`, the alphas
+    sharing the image's colour features."""
     check_backend(backend)
     seeds = np.stack([_alpha_seed(cam_dict, a) for a in alphas])
+    if backend == "tpu":
+        return list(crf_labels_tpu_batch(_load_rgb(img_path), seeds, t=t, gt_prob=gt_prob,
+                                         device=device, **AFF_CRF_PARAMS))
     return list(crf_inference_labels_multi(_load_rgb(img_path), seeds, t=t, gt_prob=gt_prob,
                                            **AFF_CRF_PARAMS))

@@ -31,8 +31,11 @@ class BatchNorm2d(nn.Module):
     running-stat update's; where a channel's mean is 2 std, the JAX formula
     is 1.3e-6 from the float64 result and `F.batch_norm` 1.0e-7, and no
     formula written out in torch got closer to JAX than `F.batch_norm` does
-    (its summation order differs). Like torch, it refuses one value per
-    channel (N * H * W = 1)."""
+    (its summation order differs). `F.batch_norm` refuses one value per
+    channel (N * H * W = 1, ASPP's global branch at batch 1); there the JAX
+    package's arithmetic runs: the batch variance E[x^2] - E[x]^2 is 0, the
+    output is `bias` up to rounding, and the stored variance takes
+    var * n / max(n - 1, 1)."""
 
     def __init__(self, features: int, eps: float = 1e-5, frozen: bool = True,
                  momentum: float = 0.1):
@@ -50,8 +53,22 @@ class BatchNorm2d(nn.Module):
             scale = self.weight * torch.rsqrt(self.running_var + self.eps)
             shift = self.bias - self.running_mean * scale
             return x * scale[:, None, None] + shift[:, None, None]
+        if x.shape[0] * x.shape[2] * x.shape[3] == 1:
+            return self._one_value(x)
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                             training=True, momentum=self.momentum, eps=self.eps)
+
+    def _one_value(self, x: torch.Tensor) -> torch.Tensor:
+        """Train-mode BN of one value per channel (layers.py:52-62 of the JAX
+        package at n = 1)."""
+        mean = x.mean(dim=(0, 2, 3))
+        var = x.square().mean(dim=(0, 2, 3)) - mean.square()
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        shift = self.bias - mean * scale
+        return x * scale[:, None, None] + shift[:, None, None]
 
 
 class Dropout(nn.Module):

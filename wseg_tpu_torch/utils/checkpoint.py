@@ -7,8 +7,10 @@
   `seg_state_dict_from_jax` does the same for the stage-3 nets, whose trunk
   and head namespaces stay apart (`backbone/resnet38/b2/...` ->
   `backbone.b2...`, `backbone/layer3_4/conv2` -> `backbone.layer3.4.conv2`).
-* `load_weights`: a reference `.pth` state_dict, or a JAX `.ckpt` file (flax
-  msgpack of {'params', 'batch_stats'}), decoded here without flax.
+* `load_weights`: a reference `.pth` state_dict, a JAX `.ckpt` file (flax
+  msgpack of {'params', 'batch_stats'}), decoded here without flax, or the
+  ImageNet ResNet-38 MXNet `.params` (`state_dict_from_mxnet`, read with
+  numpy: wseg_tpu/utils/checkpoint.py:125-277).
   `backbone_weights`: a stage-1 file as a stage-3 backbone (seg_train.py:
   125-144 of the JAX package).
 * `merge_state_dict`: loaded weights laid over a model's own, keeping its
@@ -160,10 +162,111 @@ def read_flax_msgpack(path: str) -> dict:
     return tree
 
 
+# MXNet `.params` (mxnet `NDArray::Save` list format): uint64 list magic 0x112,
+# uint64 reserved, uint64 count, then per array a legacy NDArray record, then
+# uint64 name count + (uint64 len, bytes) names. NDArray records:
+#   V2 / V3 magic (0xF993FAC9 / 0xF993FACA): int32 stype, uint32 ndim, dims
+#     (uint32 for V2, int64 for V3), int32 dev_type, int32 dev_id, int32
+#     dtype, raw data;
+#   legacy (no magic): uint32 ndim, uint32 dims, context, dtype, raw data.
+_MX_LIST_MAGIC = 0x112
+_ND_V2_MAGIC = 0xF993FAC9
+_ND_V3_MAGIC = 0xF993FACA
+_MX_DTYPES = {0: np.float32, 1: np.float64, 2: np.float16, 3: np.uint8, 4: np.int32}
+
+
+def _read_mx_ndarray(buf: bytes, off: int) -> tuple[np.ndarray, int]:
+    def scalar(dtype, o):
+        return int(np.frombuffer(buf, dtype, 1, o)[0]), o + np.dtype(dtype).itemsize
+
+    magic, off2 = scalar(np.uint32, off)
+    if magic in (_ND_V2_MAGIC, _ND_V3_MAGIC):
+        off = off2
+        stype, off = scalar(np.int32, off)
+        if stype not in (-1, 0):
+            raise ValueError(f"unsupported mxnet storage type {stype} (only dense)")
+        ndim, off = scalar(np.uint32, off)
+        dim_type = np.int64 if magic == _ND_V3_MAGIC else np.uint32
+    else:  # a legacy record: the magic was the ndim
+        ndim, off = magic, off2
+        if ndim > 8:
+            raise ValueError(f"unparseable mxnet record at offset {off - 4}")
+        dim_type = np.uint32
+    dims = []
+    for _ in range(ndim):
+        d, off = scalar(dim_type, off)
+        dims.append(d)
+    off += 8  # dev_type, dev_id
+    dtype_flag, off = scalar(np.int32, off)
+    dtype = np.dtype(_MX_DTYPES[dtype_flag])
+    count = int(np.prod(dims)) if dims else 1
+    arr = np.frombuffer(buf, dtype, count, off).reshape(dims).copy()
+    return arr, off + count * dtype.itemsize
+
+
+def read_mxnet_params(path: str) -> dict[str, np.ndarray]:
+    """A `mxnet.nd.save` file as {name: array}."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    magic, _, count = (int(v) for v in np.frombuffer(buf, np.uint64, 3, 0))
+    if magic != _MX_LIST_MAGIC:
+        raise ValueError(f"{path}: not an mxnet NDArray list (magic {magic:#x})")
+    off = 24
+    arrays = []
+    for _ in range(count):
+        arr, off = _read_mx_ndarray(buf, off)
+        arrays.append(arr)
+    n_names = int(np.frombuffer(buf, np.uint64, 1, off)[0])
+    off += 8
+    names = []
+    for _ in range(n_names):
+        ln = int(np.frombuffer(buf, np.uint64, 1, off)[0])
+        off += 8
+        names.append(buf[off:off + ln].decode())
+        off += ln
+    if len(names) != len(arrays):
+        raise ValueError(f"{path}: {len(names)} names for {len(arrays)} arrays")
+    return dict(zip(names, arrays))
+
+
+_MX_BN_LEAVES = {"beta": "bias", "gamma": "weight", "mean": "running_mean",
+                 "var": "running_var"}
+
+
+def _mxnet_key(key: str) -> str | None:
+    """An MXNet ResNet-38 name ('arg:res3a_branch2a_weight',
+    'aux:bn3a_branch2a_moving_mean', 'arg:bn7_gamma', ...) as the port's
+    state_dict key, the renaming of the reference's convert_mxnet_to_torch
+    (network/resnet38d.py:216-264); None for the ImageNet classifier."""
+    toks = key.split(":", 1)[-1].split("_")
+    if "conv1a" in toks[0]:
+        return "conv1a.weight"
+    if "linear1000" in toks[0]:
+        return None
+    if len(toks) >= 2 and "branch" in toks[1]:
+        stage = toks[0]  # res3a / bn3a -> b3; res4b1 / bn4b1 -> b4_1
+        block = "b" + stage[-2] if stage[-1] == "a" else "b" + stage[-3] + "_" + stage[-1]
+        if "res" in stage or "conv" in stage[:4]:
+            return f"{block}.conv_{toks[1]}.weight"
+        return f"{block}.bn_{toks[1]}.{_MX_BN_LEAVES[toks[-1]]}"
+    return f"bn7.{_MX_BN_LEAVES[toks[-1]]}"
+
+
+def state_dict_from_mxnet(path: str) -> dict[str, torch.Tensor]:
+    """The ImageNet-pretrained ResNet-38 `.params` as a trunk state_dict
+    (the JAX package's convert_mxnet_params, with conv kernels kept OIHW)."""
+    out = {}
+    for key, arr in read_mxnet_params(path).items():
+        name = _mxnet_key(key)
+        if name is not None:
+            out[name] = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
+    return out
+
+
 def load_weights(path: str, seg: bool = False) -> dict[str, torch.Tensor]:
-    """A state_dict from a reference `.pth` or a JAX `.ckpt` (of a stage-3
-    net with `seg`). BatchNorm's `num_batches_tracked` counters are dropped:
-    the port's BN keeps none."""
+    """A state_dict from a reference `.pth`, a JAX `.ckpt` (of a stage-3 net
+    with `seg`) or the ImageNet `.params`. BatchNorm's `num_batches_tracked`
+    counters are dropped: the port's BN keeps none."""
     if path.endswith(".pth"):
         state = torch.load(path, map_location="cpu", weights_only=True)
         if {"model", "optimizer", "generator"} <= state.keys():
@@ -174,7 +277,9 @@ def load_weights(path: str, seg: bool = False) -> dict[str, torch.Tensor]:
         tree = read_flax_msgpack(path)
         convert = seg_state_dict_from_jax if seg else state_dict_from_jax
         return convert(tree["params"], tree.get("batch_stats", {}))
-    raise ValueError(f"unknown weights format (expected .pth or .ckpt): {path}")
+    if path.endswith(".params"):
+        return state_dict_from_mxnet(path)
+    raise ValueError(f"unknown weights format (expected .pth, .ckpt or .params): {path}")
 
 
 STAGE1_HEADS = ("fc8", "fc_proj", "f8_3", "f8_4", "f8_5", "f9")
@@ -182,7 +287,7 @@ STAGE1_HEADS = ("fc8", "fc_proj", "f8_3", "f8_4", "f8_5", "f9")
 
 def backbone_weights(path: str) -> dict[str, torch.Tensor]:
     """A stage-1 file (port or reference `.pth`, JAX `.ckpt`, params only or
-    not) as stage-3 backbone entries: keys under `backbone.`, the stage-1
+    not, or the ImageNet `.params`) as stage-3 backbone entries: keys under `backbone.`, the stage-1
     heads dropped, and the drop reported."""
     out, dropped = {}, set()
     for key, val in load_weights(path).items():

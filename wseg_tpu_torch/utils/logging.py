@@ -1,13 +1,42 @@
-"""Meters, a progress timer, a scalar and image event writer and the eval log
-writer (the parts of wseg_tpu/utils/logging.py that the ported CLIs use;
-reference tool/pyutils.py and eval.py:89-106). Standard library only, but
-numpy and PIL inside `add_image`."""
+"""The stdout tee, meters, a progress timer, a scalar and image event writer
+and the eval log writer (the parts of wseg_tpu/utils/logging.py that the
+ported CLIs use; reference tool/pyutils.py and eval.py:89-106). Standard
+library only, but numpy and PIL inside `add_image`."""
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import time
+
+
+class Logger:
+    """Tee stdout to `outfile` (created with its parent directories, written
+    anew) while the `with` block runs; leaving the block restores stdout and
+    closes the file (reference tool/pyutils.py:6-17, which never does)."""
+
+    def __init__(self, outfile: str):
+        self.outfile = outfile
+
+    def __enter__(self):
+        os.makedirs(os.path.dirname(self.outfile) or ".", exist_ok=True)
+        self.terminal = sys.stdout
+        self.log = open(self.outfile, "w")
+        sys.stdout = self
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout = self.terminal
+        self.log.close()
+
+    def write(self, message: str):
+        self.terminal.write(message)
+        self.log.write(message)
+
+    def flush(self):
+        self.terminal.flush()
+        self.log.flush()
 
 
 class AverageMeter:

@@ -78,12 +78,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
      max |dQ| and argmax agreement gated, agreement with the native CRF
      printed; (b) the three calls on phase 17's 16 VOC-sized images: ms an
      image on the card's timeline and of the wall, peak memory, a profiled
-     image, beside the native CRF's host seconds an image.
+     image, beside the native CRF's host seconds an image;
+ 20. the bench twin (cli/bench.py) in this process: --mode cam at its
+     defaults (384x512, batch 8, bf16) with --iters and --baseline_reps cut
+     for time (value, vs_baseline, the ceiling; the tensor-core PCM kernel
+     on the fused path by count and by torch.profiler), then --mode train in
+     f32 at crop 448, batch 8; the PCM kernel held against its plain twin on
+     the inputs the cam run gave it, one of each shape and dtype (both
+     variants: the fused path's and the f32 baseline's);
+ 21. SEAMNet: the full-width net on the card (PCM kernel, f32, TF32 off)
+     against the CPU (plain PCM) at 64x96; a bf16 forward at crop 448,
+     batch 8: ms, peak memory, PCM launches, and the tensor-core kernel
+     held against its plain twin on the inputs that forward gave it;
+ 22. the stage-3 nets no preset uses: one train step card vs CPU of DeepLab
+     v1-caffe / ResNet-38 (batch 2), v3 / ResNet-101 and v3+ / Xception
+     (batch 4), gated as phase 15; v3+ / Xception training at crop 448,
+     batch 10, f32 on cuDNN's heuristics (ms, images/s, peak memory, a
+     profiled step); a bucketed eval forward of v3 (against exact) and v3+
+     (card against CPU).
 Stages 2 and 3 run no kernel of the port (stage 2's pair affinities, dense
 matrix and walk are plain PyTorch, as they are plain XLA in the JAX package;
 stage 3's convs are cuDNN's, as the JAX nets' are XLA's; the accelerator CRF
-is torch ops, as it is XLA ops there); phases 16, 17 and 19 check that
-neither K1 nor K2 launched.
+is torch ops, as it is XLA ops there); phases 16, 17, 19 and 22 check
+that neither K1 nor K2 launched. K1's row counts its launches on phases 5,
+20 and 21, by path in `launches_by_path`.
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit; the last line is {"ok": true, "device": {...}}.
 Weights are random, from a seed; nothing is downloaded.
@@ -91,6 +109,7 @@ Weights are random, from a seed; nothing is downloaded.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -115,6 +134,7 @@ from wseg_tpu_torch.train.optim import PolySGD, param_groups
 SEED = 0
 RTOL, ATOL = 2e-3, 2e-4          # the kernel's tolerance (tests/test_pcm_pallas.py)
 SLICE_ATOL = 1e-3                # fused CAM, card (kernel) vs CPU (plain)
+SEAM_CAM_RTOL = 1e-4             # SEAMNet's raw fc8 CAM, card vs CPU, of its max
 H0, W0, BATCH = 384, 512, 8      # bench.py --mode cam working size
 SCALES = (0.5, 1.0, 1.5, 2.0)
 PCM_KERNEL_NAME = "pcm_mma_kernel"         # bf16 features, the main path
@@ -293,15 +313,21 @@ def phase_slice_parity():
 
 def check_fused(out: torch.Tensor, shape):
     """Shape, finite, and the fusion's range: (s - min - e) / (max - min + e)
-    lies in [0, 1] wherever it is not the per-map floor that the reference's
-    normalization gives pixels below min + e."""
+    lies in [0, 1] wherever it is not the per-map floor (< 0) that the
+    reference's normalization gives pixels below min + e. A pixel just above
+    that threshold may land below 0 by the threshold's rounding in f32,
+    ulp(min + e) / 2 over the same divisor: at most 2^-24 of |floor|, so
+    2^-23 of it (float32's eps) is allowed there."""
     if tuple(out.shape) != shape:
         raise SystemExit(f"chip_smoke: output shape {tuple(out.shape)} != {shape}")
     if not bool(torch.isfinite(out).all()):
         raise SystemExit("chip_smoke: non-finite values in the fused CAM")
     floor = out.amin(dim=(-2, -1), keepdim=True)
-    if not bool(((out <= 1.0) & ((out >= 0.0) | (out == floor))).all()):
-        raise SystemExit("chip_smoke: fused CAM outside [0, 1] beyond the per-map floor")
+    low = out.float() - torch.finfo(torch.float32).eps * floor.float()
+    if not bool(((out <= 1.0) & ((low >= 0.0) | (out == floor))).all()):
+        raise SystemExit(f"chip_smoke: fused CAM outside [0, 1] beyond the per-map floor "
+                         f"and its rounding: max {float(out.max())}, least value off the "
+                         f"floor {float(torch.where(out == floor, 1.0, out).min())}")
 
 
 def profile_kernels(run):
@@ -1026,6 +1052,246 @@ def seg_batch(gen, n: int, crop: int, device="cuda"):
     return img.contiguous(memory_format=torch.channels_last), lab
 
 
+def seg_parity_inputs():
+    """4 images of 96x128 with different global content, as photos have, and
+    labels 0..20 with ~10% 255; the generator that drew them."""
+    gen = torch.Generator().manual_seed(SEED + 9)
+    img = torch.randn(4, 3, 96, 128, generator=gen)
+    img = img * torch.tensor([1.0, 0.6, 1.3, 0.8])[:, None, None, None] \
+        + torch.tensor([0.0, 0.8, -0.4, 0.3])[:, None, None, None]
+    lab = torch.randint(0, 21, (4, 96, 128), generator=gen)
+    lab[torch.rand(4, 96, 128, generator=gen) < 0.1] = 255
+    return img, lab, gen
+
+
+class SumTerms:
+    """Hooks that record what one train step sums into a conv bias or a BN
+    running mean. For `<conv>.bias`: the conv's output z and its gradient t
+    (the bias gradient is t summed over (N, H, W)); for `<bn>.running_mean`
+    of a batch-statistics BatchNorm2d: its input t (the update adds
+    `momentum` times t's mean over (N, H, W)). keys=None hooks every such
+    tensor of the model."""
+
+    def __init__(self, model, keys=None):
+        from wseg_tpu_torch.models.layers import BatchNorm2d
+
+        self.z, self.t, self.grad, self.momentum, self.handles = {}, {}, {}, {}, []
+        for path, mod in model.named_modules():
+            if isinstance(mod, torch.nn.Conv2d) and mod.bias is not None \
+                    and (keys is None or f"{path}.bias" in keys):
+                self.handles.append(mod.register_forward_hook(self._output(f"{path}.bias")))
+            elif isinstance(mod, BatchNorm2d) and not mod.frozen \
+                    and (keys is None or f"{path}.running_mean" in keys):
+                self.momentum[f"{path}.running_mean"] = mod.momentum
+                self.handles.append(mod.register_forward_pre_hook(self._input(
+                    f"{path}.running_mean")))
+
+    def _output(self, k):
+        def hook(mod, args, out):
+            self.z[k] = out.detach().clone()
+            out.register_hook(lambda g: self.t.__setitem__(k, g.detach().clone()))
+        return hook
+
+    def _input(self, k):
+        def hook(mod, args):
+            self.t[k] = args[0].detach().clone()
+        return hook
+
+    def remove(self, model):
+        """Remove the hooks and keep the hooked conv biases' gradients."""
+        for h in self.handles:
+            h.remove()
+        named = dict(model.named_parameters())
+        self.grad = {k: named[k].grad.detach().clone() for k in self.z
+                     if named[k].grad is not None}
+
+
+def seg_step(cfg, img, lab, dev, hook=False):
+    """One train-mode step (dropout keep-all) of cfg's net on `dev` through
+    make_seg_train_step: (loss, state_dict before and after on the CPU,
+    SumTerms of every conv bias and running mean if `hook`, else None)."""
+    from wseg_tpu_torch.train.optim import PolySGD, param_groups, seg_label_params
+    from wseg_tpu_torch.train.seg import make_seg_train_step
+
+    model = seg_net(cfg, dev)
+    disable_dropout(model)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt = PolySGD(param_groups(model, seg_label_params(model)), cfg.TRAIN_LR,
+                  cfg.TRAIN_WEIGHT_DECAY, cfg.TRAIN_ITERATION + 1, momentum=0.9)
+    hooks = SumTerms(model) if hook else None
+    mets = make_seg_train_step(model, opt)(img.to(dev), lab.to(dev))
+    if hooks:
+        hooks.remove(model)
+    return (float(mets["loss"]), before,
+            {k: v.detach().cpu() for k, v in model.state_dict().items()}, hooks)
+
+
+def seg_step_f64(cfg, img, lab, keys, device="cuda"):
+    """The same step as seg_step's in float64 on `device`, the loss too
+    (make_seg_train_step takes it in float32): the state_dict after it, on
+    the CPU, and SumTerms of `keys`."""
+    import torch.nn.functional as F
+
+    from wseg_tpu_torch.train.optim import PolySGD, param_groups, seg_label_params
+
+    model = seg_net(cfg, device).double()
+    disable_dropout(model)
+    labels = seg_label_params(model)
+    for name, p in model.named_parameters():
+        p.requires_grad_(labels[name] != "frozen")
+    opt = PolySGD(param_groups(model, labels), cfg.TRAIN_LR, cfg.TRAIN_WEIGHT_DECAY,
+                  cfg.TRAIN_ITERATION + 1, momentum=0.9)
+    hooks = SumTerms(model, keys)
+    lab = lab.to(device)
+    out = model.train()(img.to(device, torch.float64))
+    loss = F.cross_entropy(out, lab, ignore_index=255, reduction="sum") / (lab != 255).sum()
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+    hooks.remove(model)
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}, hooks
+
+
+def sum_referee(k, init, card, ref) -> tuple[str, bool]:
+    """Gate the card's f32 value of `k`, a conv bias or BN running mean
+    that f32 cannot compute to TRAIN_RTOL on these inputs, in the terms it
+    sums, against the float64 step `ref` (seg_step_f64, which hooks every
+    conv bias): (its report, within the gate).
+
+    Flips: where a ReLU after a biased conv took the other side of 0 in f32
+    (its gradient term is 0 on one side only), the card's pre-activation
+    must be within TRAIN_RTOL of its max from float64's, with the sign
+    flipped. Terms: the card's within TRAIN_RTOL of float64's max; for a
+    bias, whose terms are gradients, only at the (N, H, W) positions where
+    no biased conv of the same map size flipped (a flip moves a whole term
+    there, and the terms of the positions it reaches through the 1x1 layers
+    after it); a running mean's terms are forward values, which a flip
+    moves by no more than the pre-activation's rounding. Sum: the card's gradient (a bias) or running mean
+    within the recursive-summation bound of the exact sum of its own terms,
+    gamma_n * sum|t| per channel, n the terms a channel, gamma_n = n u / (1
+    - n u), u = 2^-24; for a mean, that times momentum / n, plus one ulp of
+    the stored stat."""
+    _, _, after, terms = card
+    dims = (0, 2, 3)
+    flips, wrong = 0, 0
+    t_c, t_r = terms.t[k].double(), ref.t[k].double()
+    keep = torch.ones_like(t_c[:, :1], dtype=torch.bool)  # (N, 1, H, W)
+    for b, z_r in ref.z.items():
+        t_b, z_b = terms.t[b].double(), terms.z[b].double()
+        flip = (t_b == 0) != (ref.t[b] == 0)
+        flips += int(flip.sum())
+        wrong += int((flip & ((torch.sign(z_b) == torch.sign(z_r)) | (
+            (z_b - z_r).abs() > TRAIN_RTOL * z_r.abs().max()))).sum())
+        if k.endswith(".bias") and flip.shape[2:] == t_c.shape[2:]:
+            keep &= ~flip.any(dim=1, keepdim=True)
+    terms_err = float(((t_c - t_r).abs() * keep).max() / t_r.abs().max()) / TRAIN_RTOL
+    n = t_c.numel() // t_c.shape[1]
+    gamma = n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
+    if k.endswith(".bias"):
+        got, exact, bound = terms.grad[k].double(), t_c.sum(dims), gamma * t_c.abs().sum(dims)
+    else:
+        m, got = terms.momentum[k], after[k].double().to(t_c.device)
+        exact = (1 - m) * init[k].double().to(t_c.device) + m * t_c.mean(dims)
+        ulp = torch.from_numpy(np.spacing(got.abs().float().cpu().numpy())).double()
+        bound = m * gamma * t_c.abs().mean(dims) + ulp.to(t_c.device)
+    sum_err = float(((got - exact).abs() / bound).nan_to_num(nan=0.0, posinf=np.inf).max())
+    return (f"{flips} ReLU decisions after biased convs flipped in f32 ({wrong} not explained "
+            f"by the forward); terms {terms_err:.3e} of the bound from float64's at all but "
+            f"{int((~keep).sum())} positions; the sum {sum_err:.3e} of gamma_n sum|t| from the "
+            f"exact sum of its own terms"), wrong == 0 and terms_err <= 1 and sum_err <= 1
+
+
+def seg_step_parity(tag: str, cfg, img, lab, f64_referee: bool = False):
+    """One train-mode step (dropout keep-all) of cfg's net on the card and
+    on the CPU from the same weights, f32 with TF32 off: the loss and every
+    parameter within TRAIN_RTOL relative, every running-stat update within
+    TRAIN_RTOL of the update plus one ulp of the stat.
+
+    With `f64_referee`, a tensor over its bound is measured against a
+    float64 step on the card as well. Where the CPU's own f32 result misses
+    the float64 one by more than the bound too, f32 cannot compute that
+    tensor to the bound on these inputs. Two kinds were seen: DeepLab
+    v1-caffe's conv_fov and conv_fov2 biases, whose one-step gradient moves
+    by a whole term when a ReLU decision flips (1-2 of 1.5M pre-activations
+    within rounding of 0), and the batch mean of a 1x1 conv of
+    batch-normalised features (Xception's pointwise convs), zero but for
+    rounding. A conv bias or BN running mean of that kind is gated in the
+    terms it sums (sum_referee); any other tensor stays gated as above."""
+    n = len(img)
+    runs = {dev: seg_step(cfg, img, lab, dev, hook=f64_referee and dev == "cuda")
+            for dev in ("cpu", "cuda")}
+    (loss_c, init, sd_c, *_), (loss_g, _, sd_g, *_) = runs["cpu"], runs["cuda"]
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+
+    def over_bound(got, want, k) -> float:
+        """|got - want| in units of the bound: at most 1 when within it."""
+        if not k.endswith(("running_mean", "running_var")):
+            return rel_err(got[k].double(), want[k].double()) / TRAIN_RTOL
+        d_got, d_want = got[k].double() - init[k], want[k].double() - init[k]
+        ulp = float(np.spacing(np.float32(want[k].abs().max())))
+        return float((d_got - d_want).abs().max()) / (TRAIN_RTOL * float(d_want.abs().max())
+                                                      + ulp)
+
+    errs = {k: over_bound(sd_g, sd_c, k) for k in sd_c}
+    failed = [k for k, v in errs.items() if v > 1]
+    if failed and f64_referee:
+        sd_r, ref = seg_step_f64(cfg, img, lab, failed + list(runs["cuda"][3].z))
+        for k in failed:
+            e_card, e_cpu = over_bound(sd_g, sd_r, k), over_bound(sd_c, sd_r, k)
+            msg = (f"[seg-parity] {tag} {k} (max |value| {float(sd_r[k].abs().max()):.3e}): "
+                   f"card vs CPU {errs[k]:.3e} of the bound; against a float64 step on the "
+                   f"card: card {e_card:.3e}, CPU {e_cpu:.3e} of it")
+            if e_cpu > 1 and k in ref.t:
+                report, ok = sum_referee(k, init, runs["cuda"], ref)
+                msg += f": ill-conditioned in f32, gated in its terms: {report}"
+                if ok:
+                    errs.pop(k)
+            print(msg + ("" if k not in errs else ": over the bound"), flush=True)
+        failed = [k for k in failed if k in errs]
+    del runs
+    params = {k: v * TRAIN_RTOL for k, v in errs.items()
+              if not k.endswith(("running_mean", "running_var"))}
+    stats = {k: v for k, v in errs.items() if k.endswith(("running_mean", "running_var"))}
+    (pk, param_err), (sk, stat_err) = (max(d.items(), key=lambda kv: kv[1])
+                                       for d in (params, stats))
+    print(f"[seg-parity] {tag} train step batch {n} at 96x128, card (f32, TF32 off) vs CPU: "
+          f"loss {loss_g:.6f} rel err {loss_err:.3e}; params max rel err {param_err:.3e} "
+          f"({pk}); running-stat updates {stat_err:.3e} of the tolerance ({TRAIN_RTOL} of "
+          f"the update + 1 ulp of the stat; {sk}); worst five: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(stats.items(), key=lambda kv: -kv[1])[:5]),
+          flush=True)
+    if loss_err > TRAIN_RTOL or failed:
+        raise SystemExit(f"chip_smoke: the stage-3 step of {tag} on the card disagrees "
+                         f"with the CPU: {failed}")
+
+
+def bucket_inputs(gen):
+    """Two sizes zero-padded into one 128x192 bucket, on the card."""
+    sizes = [(120, 185), (97, 150)]
+    x = torch.zeros(2, 3, 128, 192, device="cuda")
+    for i, (h, w) in enumerate(sizes):
+        x[i, :, :h, :w] = torch.randn(3, h, w, generator=gen).cuda()
+    return x, torch.tensor(sizes, device="cuda"), sizes
+
+
+def seg_bucket_vs_exact(tag: str, model, gen):
+    """The bucketed eval forward's valid logits against each size's exact
+    forward on the card: within 1e-4 of the max."""
+    x, valid, sizes = bucket_inputs(gen)
+    worst = 0.0
+    with torch.inference_mode():
+        bucketed = model(x, valid_hw=valid, raw_logits=True)
+        for i, (h, w) in enumerate(sizes):
+            exact = model(x[i:i + 1, :, :h, :w], raw_logits=True)[0]
+            h8, w8 = exact.shape[-2:]
+            worst = max(worst, float((bucketed[i, :, :h8, :w8] - exact).abs().max()
+                                     / exact.abs().max()))
+    print(f"[seg-parity] {tag} bucketed eval (2 sizes in a 128x192 bucket) vs exact on the "
+          f"card: valid logits {worst:.3e} of the max (bound 1e-4)", flush=True)
+    if not worst <= 1e-4:
+        raise SystemExit(f"chip_smoke: {tag} bucketed forward disagrees with exact")
+
+
 def phase_seg_parity():
     """Stage 3 on the card vs the CPU, same weights, f32 with TF32 off: one
     train-mode step (dropout keep-all) of DeepLab v1 / ResNet-38 at batch 2
@@ -1039,70 +1305,12 @@ def phase_seg_parity():
     BN divides their difference by ~sqrt(eps) and turns rounding into
     signal: the card and the CPU then differed by up to 2.2e-3 in the
     running-stat update of the conv after it, with parameters within 3e-5."""
-    from wseg_tpu_torch.train.optim import PolySGD, param_groups, seg_label_params
-    from wseg_tpu_torch.train.seg import make_seg_train_step
-
-    gen = torch.Generator().manual_seed(SEED + 9)
-    img = torch.randn(4, 3, 96, 128, generator=gen)
-    # images of different global content, as photos have
-    img = img * torch.tensor([1.0, 0.6, 1.3, 0.8])[:, None, None, None] \
-        + torch.tensor([0.0, 0.8, -0.4, 0.3])[:, None, None, None]
-    lab = torch.randint(0, 21, (4, 96, 128), generator=gen)
-    lab[torch.rand(4, 96, 128, generator=gen) < 0.1] = 255
+    img, lab, gen = seg_parity_inputs()
     for exp, n in (("SEAM_deeplabv1_resnet38", 2), ("EPS_deeplabv2_resnet101", 4)):
         cfg = seg_cfg(exp)
-        runs = {}
-        for dev in ("cpu", "cuda"):
-            model = seg_net(cfg, dev)
-            disable_dropout(model)
-            before = {k: v.detach().clone() for k, v in model.state_dict().items()}
-            opt = PolySGD(param_groups(model, seg_label_params(model)), cfg.TRAIN_LR,
-                          cfg.TRAIN_WEIGHT_DECAY, cfg.TRAIN_ITERATION + 1, momentum=0.9)
-            mets = make_seg_train_step(model, opt)(img[:n].to(dev), lab[:n].to(dev))
-            runs[dev] = (float(mets["loss"]), before,
-                         {k: v.detach().cpu() for k, v in model.state_dict().items()})
-            del model, opt
-        (loss_c, init, sd_c), (loss_g, _, sd_g) = runs["cpu"], runs["cuda"]
-        loss_err = abs(loss_g - loss_c) / abs(loss_c)
-        params, stats = {}, {}
-        for k in sd_c:
-            if k.endswith(("running_mean", "running_var")):
-                d_c, d_g = sd_c[k] - init[k], sd_g[k] - init[k]
-                ulp = float(np.spacing(np.float32(sd_c[k].abs().max())))
-                stats[k] = float((d_g - d_c).abs().max()) / (TRAIN_RTOL * float(d_c.abs().max())
-                                                              + ulp)
-            else:
-                params[k] = rel_err(sd_g[k], sd_c[k])
-        (pk, param_err), (sk, stat_err) = (max(d.items(), key=lambda kv: kv[1])
-                                           for d in (params, stats))
-        print(f"[seg-parity] {exp} train step batch {n} at 96x128, card (f32, TF32 off) vs CPU: "
-              f"loss {loss_g:.6f} rel err {loss_err:.3e}; params max rel err {param_err:.3e} "
-              f"({pk}); running-stat updates {stat_err:.3e} of the tolerance ({TRAIN_RTOL} of "
-              f"the update + 1 ulp of the stat; {sk}); worst five: "
-              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(stats.items(), key=lambda kv: -kv[1])[:5]),
-              flush=True)
-        if loss_err > TRAIN_RTOL or param_err > TRAIN_RTOL or stat_err > 1:
-            raise SystemExit(f"chip_smoke: the stage-3 step of {exp} on the card disagrees "
-                             "with the CPU")
-
+        seg_step_parity(exp, cfg, img[:n], lab[:n])
         model = seg_net(cfg).eval()
-        sizes = [(120, 185), (97, 150)]
-        x = torch.zeros(2, 3, 128, 192, device="cuda")
-        for i, (h, w) in enumerate(sizes):
-            x[i, :, :h, :w] = torch.randn(3, h, w, generator=gen).cuda()
-        valid = torch.tensor(sizes, device="cuda")
-        worst = 0.0
-        with torch.inference_mode():
-            bucketed = model(x, valid_hw=valid, raw_logits=True)
-            for i, (h, w) in enumerate(sizes):
-                exact = model(x[i:i + 1, :, :h, :w], raw_logits=True)[0]
-                h8, w8 = exact.shape[-2:]
-                worst = max(worst, float((bucketed[i, :, :h8, :w8] - exact).abs().max()
-                                         / exact.abs().max()))
-        print(f"[seg-parity] {exp} bucketed eval (2 sizes in a 128x192 bucket) vs exact on the "
-              f"card: valid stride-8 logits {worst:.3e} of the max (bound 1e-4)", flush=True)
-        if not worst <= 1e-4:
-            raise SystemExit(f"chip_smoke: {exp} bucketed forward disagrees with exact")
+        seg_bucket_vs_exact(exp, model, gen)
         del model
         torch.cuda.empty_cache()
 
@@ -1573,6 +1781,260 @@ def phase_crf(card: str):
         raise SystemExit("chip_smoke: the CRF unexpectedly launched a port kernel")
 
 
+# ---------------------------------------------------------------------------
+# the bench twin, SEAMNet, and the rest of stage 3
+
+BENCH_ITERS, BENCH_BASELINE_REPS = 3, 1  # bench's defaults are 8 and 12: cut for time
+
+
+@contextlib.contextmanager
+def pcm_calls_on_path():
+    """Record the inputs that the code run inside gives pcm_cuda.pcm_fused
+    (the NCHW wrapper calls it too), the first of each shape and dtype:
+    yields {key: (cam, f, eps, mask)}. The call itself runs and counts as
+    before."""
+    seen, launch = {}, pcm_cuda.pcm_fused
+
+    def record(cam, f, eps=1e-5, mask=None, variant=None):
+        key = (tuple(f.shape), f.dtype, cam.dtype, mask is not None)
+        if key not in seen:
+            seen[key] = (cam.detach().clone(), f.detach().clone(), eps,
+                         None if mask is None else mask.detach().clone())
+        return launch(cam, f, eps, mask, variant)
+
+    pcm_cuda.pcm_fused = record
+    try:
+        yield seen
+    finally:
+        pcm_cuda.pcm_fused = launch
+
+
+def hold_pcm_on_path(tag: str, seen: dict) -> float:
+    """The PCM kernel against its plain twin (pcm_flat_bf16 for bf16
+    features, pcm_flat for f32) on each recorded input, within phase 3's
+    tolerance: the max abs error. The cam goes in as f32, which is what the
+    kernel reads whatever its dtype (a bf16 cam's output is rounded to bf16
+    after the kernel, which no plain twin repeats)."""
+    worst = 0.0
+    for (shape, f_dtype, cam_dtype, masked), (cam, f, eps, mask) in seen.items():
+        variant = pcm_cuda.pcm_variant(f_dtype, shape[2])
+        plain = pcm_flat_bf16 if f_dtype == torch.bfloat16 else pcm_flat
+        got = pcm_cuda.pcm_fused(cam.float(), f, eps, mask)
+        want = plain(cam.float(), f, eps, mask)
+        err = (got - want).abs()
+        ok = bool((err <= ATOL + RTOL * want.abs()).all())
+        worst = max(worst, float(err.max()))
+        print(f"[kernel-on-path] {tag}: f {shape} {str(f_dtype)[6:]}, cam {str(cam_dtype)[6:]}"
+              f"{', masked' if masked else ''}, variant {variant}: max_abs_err "
+              f"{float(err.max()):.3e} within rtol={RTOL} atol={ATOL}: {ok}", flush=True)
+        del got, want, err
+        torch.cuda.empty_cache()
+        if not ok:
+            raise SystemExit(f"chip_smoke: PCM kernel disagrees with its plain version on "
+                             f"{tag}'s inputs {shape}")
+    return worst
+
+
+def run_bench(argv) -> dict:
+    """cli/bench.py's main in this process: its one JSON line, echoed and
+    checked (value > 0)."""
+    from wseg_tpu_torch.cli import bench
+
+    out = run_cli(Path.cwd(), bench.main, argv)
+    lines = [line for line in out.splitlines() if line.strip()]
+    if len(lines) != 1:
+        raise SystemExit(f"chip_smoke: bench printed {len(lines)} stdout lines, not one JSON line")
+    result = json.loads(lines[0])
+    if not result["value"] > 0:
+        raise SystemExit(f"chip_smoke: bench {argv} gave value {result['value']}")
+    return result
+
+
+def phase_bench(card: str) -> dict:
+    """The bench twin at its defaults (384x512, batch 8, bf16 trunk) with
+    `iters` and `baseline_reps` cut for time, then `--mode train` in f32 at
+    crop 448, batch 8; then one profiled fused-only cam run. Returns the PCM
+    launches of the unprofiled cam run by path: the fused bf16 path's
+    tensor-core kernel, the f32 reference-style baseline's FMA kernel."""
+    print(f"[bench] cam mode with --iters {BENCH_ITERS} --baseline_reps {BENCH_BASELINE_REPS} "
+          "(defaults 8 and 12, cut for this script's time)", flush=True)
+    pcm_cuda.reset_launches()
+    with pcm_calls_on_path() as seen:
+        cam = run_bench(["--mode", "cam", "--iters", str(BENCH_ITERS), "--baseline_reps",
+                         str(BENCH_BASELINE_REPS)])
+    mma, fma = pcm_cuda.variant_launches["mma"], pcm_cuda.variant_launches["fma"]
+    if cam["vs_baseline"] is None or not cam["vs_baseline"] > 0:
+        raise SystemExit("chip_smoke: bench --mode cam gave no vs_baseline")
+    if mma < 1 or fma < 1 or mma + fma != pcm_cuda.launches:
+        raise SystemExit(f"chip_smoke: bench --mode cam launched {mma} tensor-core and {fma} "
+                         f"FMA PCM kernels of {pcm_cuda.launches} PCM launches")
+    hold_pcm_on_path("bench --mode cam", seen)
+    del seen
+    totals = profile_kernels(lambda: run_bench(["--mode", "cam", "--iters", "1", "--warmup", "0",
+                                                "--skip_reference_style"]))
+    pcm_ms = sum(v for k, v in totals.items() if PCM_KERNEL_NAME in k)
+    if not pcm_ms > 0:
+        raise SystemExit(f"chip_smoke: torch.profiler saw no {PCM_KERNEL_NAME} in bench's cam run")
+    train = run_bench(["--mode", "train", "--dtype", "float32", "--iters", "2", "--warmup", "1"])
+    d = cam["detail"]
+    print(f"{card} | bench cam: {cam['value']} images/s, vs_baseline {cam['vs_baseline']} "
+          f"(reference-style {d['reference_style_ips']} images/s); ceiling "
+          f"{d['physical_ceiling_ips']} images/s ({d['pct_of_physical_ceiling']}%); PCM "
+          f"launches: {mma} tensor-core on the fused path ({d['pcm_launches_per_batch']} a "
+          f"timed batch), {fma} FMA on the f32 baseline; profiled {PCM_KERNEL_NAME} "
+          f"{pcm_ms:.2f} ms; bench train f32: {train['value']} images/s", flush=True)
+    torch.cuda.empty_cache()
+    return {"bench --mode cam, fused bf16 (phase 20)": mma,
+            "bench --mode cam, reference-style f32 (phase 20)": fma}
+
+
+def phase_seam(card: str) -> int:
+    """SEAMNet: the full-width net on the card (PCM kernel, f32, TF32 off)
+    against the same weights on the CPU (plain PCM) at 2 x 64x96: cam_rv,
+    the PCM-refined CAM in [0, 1], within SLICE_ATOL absolutely; cam, the
+    raw fc8 logits of a random net (O(100)), within SEAM_CAM_RTOL of its
+    largest entry. Then a forward at crop 448, batch 8, bf16 trunk: ms,
+    peak memory and the PCM launches, and the tensor-core kernel against
+    its plain twin on the inputs that forward gave it. Returns the launches
+    of the timed crop-448 forwards."""
+    gen = torch.Generator().manual_seed(SEED + 20)
+    x = torch.randn(2, 3, 64, 96, generator=gen)
+    outs = {}
+    pcm_cuda.reset_launches()
+    for dev in ("cpu", "cuda"):
+        model = build_model("seam", device=dev, generator=torch.Generator().manual_seed(SEED))
+        with torch.no_grad():
+            outs[dev] = [t.cpu() for t in model.eval()(x.to(dev))]
+        del model
+    fma = pcm_cuda.variant_launches["fma"]
+    (cam_g, rv_g), (cam_c, rv_c) = outs["cuda"], outs["cpu"]
+    cam_abs, rv_err = float((cam_g - cam_c).abs().max()), float((rv_g - rv_c).abs().max())
+    cam_max = float(cam_c.abs().max())
+    print(f"[seam-parity] SEAMNet (cam, cam_rv) {tuple(cam_g.shape)} card (kernel, f32, TF32 "
+          f"off) vs CPU (plain PCM): cam max_abs_err {cam_abs:.3e} of max |cam| {cam_max:.3e} "
+          f"(rel {cam_abs / cam_max:.3e}, bound {SEAM_CAM_RTOL}); cam_rv max_abs_err "
+          f"{rv_err:.3e} (bound {SLICE_ATOL}); f32 PCM launches {fma}", flush=True)
+    if fma != 1 or pcm_cuda.launches != 1:
+        raise SystemExit(f"chip_smoke: SEAMNet launched {pcm_cuda.launches} PCM kernels, "
+                         f"{fma} f32, not 1")
+    if not (cam_abs <= SEAM_CAM_RTOL * cam_max and rv_err <= SLICE_ATOL):
+        raise SystemExit("chip_smoke: SEAMNet on the card disagrees with the CPU")
+
+    n, crop = 8, 448
+    model = build_model("seam", generator=torch.Generator().manual_seed(SEED))
+    model = model.to(torch.bfloat16).eval()
+    img = torch.randn(n, 3, crop, crop, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                      device="cuda").to(torch.bfloat16)
+    img = img.contiguous(memory_format=torch.channels_last)
+
+    def fwd():
+        with torch.no_grad():
+            return model(img)
+
+    with pcm_calls_on_path() as seen:
+        out = fwd()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pcm_cuda.reset_launches()
+    ms = cuda_ms(fwd, iters=3, warmup=0)
+    launches = pcm_cuda.variant_launches["mma"]
+    peak = torch.cuda.max_memory_allocated()
+    if launches != 3 or pcm_cuda.launches != 3:
+        raise SystemExit(f"chip_smoke: 3 SEAMNet forwards launched {launches} tensor-core PCM "
+                         f"kernels of {pcm_cuda.launches}")
+    if not all(bool(torch.isfinite(t).all()) and t.shape == (n, 21, crop, crop) for t in out):
+        raise SystemExit("chip_smoke: SEAMNet gave a wrong shape or non-finite values")
+    hold_pcm_on_path(f"SEAMNet crop {crop} batch {n} bf16", seen)
+    del seen
+    totals = profile_kernels(fwd)
+    busy = sum(totals.values())
+    pcm_ms = sum(v for k, v in totals.items() if any(m in k for m in PCM_KERNEL_NAMES))
+    print(f"{card} | SEAMNet forward crop {crop} batch {n} bf16 trunk: {ms:.1f} ms "
+          f"({n / ms * 1e3:.2f} images/s, CUDA events, mean of 3), peak device memory "
+          f"{peak / 2**30:.2f} GiB, PCM launches {launches} ({launches // 3} a forward); profiled: "
+          f"busy {busy:.1f} ms, PCM kernels {pcm_ms:.2f} ms ({100 * pcm_ms / busy:.2f}%)",
+          flush=True)
+    del model, out, img
+    torch.cuda.empty_cache()
+    return launches
+
+
+def v3plus_cfg():
+    """DeepLab v3+ on Xception (os 8) with the SegConfig defaults."""
+    from wseg_tpu_torch.seg.config import SegConfig
+
+    return SegConfig(MODEL_NAME="deeplabv3plus", MODEL_BACKBONE="xception")
+
+
+def phase_seg_nets(card: str):
+    """The new stage-3 nets. Parity, card vs CPU as phase 15: one train-mode
+    step (dropout off, 96x128) of v1-caffe / ResNet-38 at batch 2, v3 /
+    ResNet-101 at batch 4 and v3+ / Xception (os 8) at batch 4. Then v3+ /
+    Xception at the SegConfig defaults (crop 448, batch 10), f32, on cuDNN's
+    heuristics: ms a step, images/s, peak memory, device busy and a profiled
+    step's top kernels. Then a bucketed eval forward of v3 (against exact)
+    and of v3+ (card against CPU). Neither K1 nor K2 may launch."""
+    from wseg_tpu_torch.seg.config import SegConfig
+    from wseg_tpu_torch.train.optim import PolySGD, param_groups, seg_label_params
+    from wseg_tpu_torch.train.seg import make_seg_train_step
+
+    pcm_cuda.reset_launches()
+    conv_cuda.reset_launches()
+    img, lab, gen = seg_parity_inputs()
+    v1c = SegConfig(MODEL_NAME="deeplabv1_caffe")
+    v3 = SegConfig(MODEL_NAME="deeplabv3", MODEL_BACKBONE="resnet101", MODEL_ASPP_HASGLOBAL=True)
+    for tag, cfg, n in (("deeplabv1_caffe / resnet38", v1c, 2),
+                        ("deeplabv3 / resnet101", v3, 4),
+                        ("deeplabv3plus / xception", v3plus_cfg(), 4)):
+        seg_step_parity(tag, cfg, img[:n], lab[:n], f64_referee=True)
+        torch.cuda.empty_cache()
+
+    torch.backends.cudnn.benchmark = False
+    cfg = v3plus_cfg()
+    n, crop = cfg.TRAIN_BATCHES, cfg.DATA_RANDOMCROP
+    model = seg_net(cfg)
+    opt = PolySGD(param_groups(model, seg_label_params(model)), cfg.TRAIN_LR,
+                  cfg.TRAIN_WEIGHT_DECAY, cfg.TRAIN_ITERATION + 1, momentum=cfg.TRAIN_MOMENTUM)
+    step = make_seg_train_step(model, opt, generator=torch.Generator(device="cuda")
+                               .manual_seed(SEED))
+    batch = seg_batch(torch.Generator(device="cuda").manual_seed(SEED + 21), n, crop)
+    ms, mets, peak = time_steps(step, batch, 2)
+    loss = float(mets["loss"])
+    if not np.isfinite(loss):
+        raise SystemExit("chip_smoke: non-finite v3+ / Xception training loss")
+    totals = profile_kernels(lambda: step(*batch))
+    busy = sum(totals.values())
+    print(f"{card} | seg train deeplabv3plus / xception (os 8) crop {crop} batch {n} f32 (TF32 "
+          f"off), cuDNN heuristics: {ms:.1f} ms/step, {n / ms * 1e3:.2f} images/s (mean of 2 "
+          f"after 1 warm-up), peak device memory {peak / 2**30:.2f} GiB; last loss {loss:.4f}; "
+          f"profiled step: device busy {busy:.1f} ms (idle "
+          f"{100 * max(0.0, 1 - busy / ms):.1f}%); top kernels:", flush=True)
+    print_top(card, totals, k=10)
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+
+    model = seg_net(v3).eval()
+    seg_bucket_vs_exact("deeplabv3 / resnet101", model, gen)
+    del model
+    x, valid, _ = bucket_inputs(gen)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        model = seg_net(v3plus_cfg(), dev).eval()
+        with torch.inference_mode():
+            outs.append(model(x.to(dev), valid_hw=valid.to(dev), raw_logits=True).cpu())
+        del model
+    err = rel_err(outs[0], outs[1])
+    print(f"[seg-nets] deeplabv3plus / xception bucketed eval (2 sizes in a 128x192 bucket), "
+          f"card vs CPU: {err:.3e} of the max (bound {TRAIN_RTOL})", flush=True)
+    if not err <= TRAIN_RTOL:
+        raise SystemExit("chip_smoke: the bucketed v3+ forward on the card disagrees with the CPU")
+    print(f"{card} | the new stage-3 nets launched PCM {pcm_cuda.launches} and K2 "
+          f"{conv_cuda.launches} times", flush=True)
+    if pcm_cuda.launches or conv_cuda.launches:
+        raise SystemExit("chip_smoke: stage 3 unexpectedly launched a port kernel")
+    torch.cuda.empty_cache()
+
+
 def timed(name: str, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -1604,6 +2066,12 @@ def main() -> int:
     timed("17 seg_test TTA", phase_seg_test_working_size, card)
     timed("18 stage-3 CLI chain", phase_seg_cli, card)
     timed("19 accelerator CRF", phase_crf, card)
+    by_path = {"CAM inference (phase 5)": pcm_row["launches"]}
+    by_path.update(timed("20 bench twin", phase_bench, card))
+    by_path["SEAMNet forward (phase 21)"] = timed("21 SEAMNet", phase_seam, card)
+    timed("22 stage-3 nets", phase_seg_nets, card)
+    pcm_row["launches"] = sum(by_path.values())
+    pcm_row["launches_by_path"] = by_path
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [pcm_row, conv_row]}))
     print(card)

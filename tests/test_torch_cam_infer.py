@@ -8,7 +8,9 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
-from test_torch_models import port_model_from_jax, random_jax_variables
+from test_torch_models import (  # noqa: F401 (drop_tmp_path: an autouse fixture)
+    port_model_from_jax, random_jax_variables, drop_tmp_path,
+)
 
 from wseg_tpu.data import transforms as jT
 from wseg_tpu.infer import cam as jcam

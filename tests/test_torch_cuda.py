@@ -305,3 +305,63 @@ def test_seg_train_step_card_matches_cpu(cuda):
     for k in sd_c:
         assert float((sd_g[k] - sd_c[k]).abs().max()) <= 1e-3 * float(sd_c[k].abs().max()), k
     assert float(sd_g["backbone.bn7.running_mean"].abs().max()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seam_pcm_kernel_matches_plain(cuda, dtype):
+    """SEAMNet's no-grad PCM on the card (the FMA kernel for f32 features,
+    the tensor-core kernel for bf16) against the plain formula on the same
+    f9 features and CAM: within 2e-3 relative + 2e-4, one launch of the
+    expected variant per forward."""
+    from wseg_tpu_torch.ops.cam import cam_bg_complete
+
+    model = build_model("seam", device=cuda, generator=torch.Generator().manual_seed(0))
+    model = model.to(dtype).eval()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, 3, 96, 128, generator=gen, device=cuda).to(dtype)
+    variant = pcm_cuda.pcm_variant(dtype, 192)
+    before = pcm_cuda.variant_launches[variant]
+    with torch.no_grad():
+        cam, cam_rv = model(x)
+        d = super(type(model), model).forward(x)
+        cam8 = model.fc8(d["conv6"])
+        f = model.f9(torch.cat([torch.nn.functional.interpolate(
+            x, cam8.shape[-2:], mode="bilinear", align_corners=True),
+            torch.relu(model.f8_3(d["conv4"])), torch.relu(model.f8_4(d["conv5"]))], dim=1))
+        # the CAM in f32, so the output is too: in the bf16 net it is
+        # rounded to bf16 after the kernel, which no plain twin repeats
+        got = pcm_cuda.pcm_fused_nchw(cam_bg_complete(cam8).float(), f)
+        plain = pcm_flat_bf16 if dtype == torch.bfloat16 else pcm_flat
+        n, cf, h, w = f.shape
+        want = plain(cam_bg_complete(cam8).float().permute(0, 2, 3, 1).reshape(n, h * w, 21),
+                     f.permute(0, 2, 3, 1).reshape(n, h * w, cf))
+    assert pcm_cuda.variant_launches[variant] == before + 2
+    assert cam_rv.shape == cam.shape == (2, 21, 96, 128) and bool(torch.isfinite(cam_rv).all())
+    want = want.reshape(n, h, w, 21).permute(0, 3, 1, 2)
+    torch.testing.assert_close(got.float(), want, rtol=2e-3, atol=2e-4)
+
+
+def test_deeplab_v3plus_xception_forward_on_card(cuda):
+    """DeepLab v3+ on Xception (os 8), f32: an eval forward of 2 x 96 x 128
+    on the card against the same weights on the CPU, within 1e-4 of the
+    logits' max; and a bucketed forward (two sizes in one bucket) finite,
+    with no port kernel launched."""
+    from wseg_tpu_torch.seg.config import SegConfig
+    from wseg_tpu_torch.seg.deeplab import generate_net
+
+    cfg = SegConfig(MODEL_NAME="deeplabv3plus", MODEL_BACKBONE="xception",
+                    MODEL_ASPP_HASGLOBAL=True)
+    x = torch.randn(2, 3, 96, 128, generator=torch.Generator().manual_seed(4))
+    outs = []
+    launches = (pcm_cuda.launches, conv_cuda.launches)
+    for dev in ("cpu", cuda):
+        model = generate_net(cfg, device=dev, generator=torch.Generator().manual_seed(0)).eval()
+        with torch.no_grad():
+            outs.append(model(x.to(dev), raw_logits=True).cpu())
+    assert outs[0].shape == (2, 21, 24, 32)
+    assert float((outs[1] - outs[0]).abs().max()) <= 1e-4 * float(outs[0].abs().max())
+    with torch.no_grad():
+        valid = torch.tensor([[96, 128], [70, 99]], device=cuda)
+        bucketed = model(x.to(cuda), valid_hw=valid, raw_logits=True)
+    assert bool(torch.isfinite(bucketed).all())
+    assert (pcm_cuda.launches, conv_cuda.launches) == launches

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from test_torch_train import _make_voc
+from test_torch_models import drop_tmp_path  # noqa: F401 (an autouse fixture)
 from wseg_tpu.models.layers import BatchNorm2d as JaxBatchNorm2d
 from wseg_tpu_torch.models import build_model
 from wseg_tpu_torch.models.layers import BatchNorm2d

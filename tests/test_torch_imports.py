@@ -38,10 +38,11 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 61  # every module was walked
+    assert int(out.stdout.strip().splitlines()[-1]) >= 66  # every module was walked
     for mod in ("seg.config", "seg.backbones", "seg.deeplab", "seg.dataset", "train.seg",
                 "cli.seg_train", "cli.seg_test", "utils.visualization", "ops.crf",
-                "cli.reproduce", "cli.make_cls_labels", "utils.profiling"):
+                "cli.reproduce", "cli.make_cls_labels", "utils.profiling", "cli.bench",
+                "models.seam", "data.segmentation", "seg.xception", "seg.extra_datasets"):
         assert f"wseg_tpu_torch.{mod}" in out.stdout
 
 

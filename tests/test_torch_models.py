@@ -6,6 +6,8 @@ BN), and cross into the port through `state_dict_from_jax`. f32 on the CPU;
 the JAX ContrastNet uses its XLA PCM (fused_pcm=False), the port its plain
 PCM (CPU tensors)."""
 
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,19 @@ from wseg_tpu.utils.checkpoint import convert_torch_state_dict, save_checkpoint
 from wseg_tpu_torch.models import build_model
 from wseg_tpu_torch.models import resnet38 as tr
 from wseg_tpu_torch.utils.checkpoint import load_weights, state_dict_from_jax
+
+
+@pytest.fixture(autouse=True)
+def drop_tmp_path(request):
+    """Empties the test's tmp_path when it ends. Tests of the full-width
+    nets write weight files of ~400 MB each, pytest keeps the temp dirs of
+    its last three runs, and on a shared disk the suite's ~7 GB a run filled
+    it up: the tests still running failed with ENOSPC, and the junit report
+    could not be written. Test files that write weights import this."""
+    yield
+    tmp = request.node.funcargs.get("tmp_path")
+    if tmp is not None:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def random_jax_variables(module, x_shape, seed=0, **init_kw):

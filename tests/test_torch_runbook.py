@@ -9,6 +9,7 @@ import sys
 import numpy as np
 import pytest
 
+from test_torch_models import drop_tmp_path  # noqa: F401 (an autouse fixture)
 from test_torch_train import _make_voc
 
 CATS = ["dog", "cat", "person", "car", "bus"]

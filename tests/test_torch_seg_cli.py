@@ -9,6 +9,7 @@ GB a checkpoint, and their code is held by tests/test_torch_seg_models.py."""
 import contextlib
 import io
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -73,9 +74,11 @@ def runs(tmp_path_factory, experiment):
                                         "--min_epoch", "1"])
     pth = os.path.join(part, CKPT + "_itr4_all.pth")
     flags = ["--exp", EXP, "--data_root", voc, "--ckpt", pth]
-    return dict(base=base, voc=voc, names=names, full=full, part=part, pth=pth,
-                crf=_seg_test(os.path.join(base, "crf"), flags),
-                nocrf=_seg_test(os.path.join(base, "nocrf"), flags + ["--no_crf"]))
+    yield dict(base=base, voc=voc, names=names, full=full, part=part, pth=pth,
+               crf=_seg_test(os.path.join(base, "crf"), flags),
+               nocrf=_seg_test(os.path.join(base, "nocrf"), flags + ["--no_crf"]))
+    # weights and train states: see test_torch_models.drop_tmp_path
+    shutil.rmtree(base, ignore_errors=True)
 
 
 def test_seg_train_resume_equals_uninterrupted(runs):

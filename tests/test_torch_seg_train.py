@@ -110,7 +110,7 @@ def run_two_steps(jax_cfg, port_cfg, batch: int, seed: int = 7):
                      {k: v.detach().clone() for k, v in tmodel.state_dict().items()}))
 
     tx = poly_sgd(LR, WD, max_step=MAX_ITR + 1, momentum=0.9,
-                  labels=seg_param_labels(params))
+                  labels=seg_param_labels(params, getattr(type(jmodel), "FROM_SCRATCH", None)))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax.random, "bernoulli",
                    lambda key, p=0.5, shape=None: jnp.ones(shape if shape is not None else (),

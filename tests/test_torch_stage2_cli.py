@@ -5,6 +5,7 @@ and a resume), then aff_infer. Weights are random from a seed; the VOC root
 is synthetic."""
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -74,7 +75,8 @@ def chain(tmp_path_factory):
         os.chdir(cwd)
     d["aff_pth"] = str(root / "result" / "part" / "aff.pth")
     d["aff_full_pth"] = str(root / "result" / "full" / "aff.pth")
-    return d
+    yield d
+    shutil.rmtree(root, ignore_errors=True)  # ~800 MB: see test_torch_models.drop_tmp_path
 
 
 def test_contrast_infer_crf_pngs_equal_jax(chain):

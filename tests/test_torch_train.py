@@ -14,7 +14,9 @@ import pytest
 import torch
 from torch import nn
 
-from test_torch_models import _nchw, _rel_err, port_model_from_jax, random_jax_variables
+from test_torch_models import (  # noqa: F401 (drop_tmp_path: an autouse fixture)
+    _nchw, _rel_err, port_model_from_jax, random_jax_variables, drop_tmp_path,
+)
 from wseg_tpu.models import build_model as jax_build_model
 from wseg_tpu.train import optim as jopt
 from wseg_tpu_torch.models import build_model

@@ -159,6 +159,27 @@ class RandomCrop:
         return self.apply(arr, self.get_box(*arr.shape[:2], rng))
 
 
+class CenterCrop:
+    """Center crop of an HW or HWC array, padded with `default_value` to
+    `cropsize` where the image is smaller (tool/imutils.py:160-198)."""
+
+    def __init__(self, cropsize: int, default_value=0):
+        self.cropsize = cropsize
+        self.default_value = default_value
+
+    def __call__(self, npimg: np.ndarray) -> np.ndarray:
+        h, w = npimg.shape[:2]
+        ch, cw = min(self.cropsize, h), min(self.cropsize, w)
+        sh, sw = h - self.cropsize, w - self.cropsize
+        cont_left, img_left = (0, int(round(sw / 2))) if sw > 0 else (int(round(-sw / 2)), 0)
+        cont_top, img_top = (0, int(round(sh / 2))) if sh > 0 else (int(round(-sh / 2)), 0)
+        out = np.full((self.cropsize, self.cropsize) + npimg.shape[2:], self.default_value,
+                      npimg.dtype)
+        out[cont_top:cont_top + ch, cont_left:cont_left + cw] = \
+            npimg[img_top:img_top + ch, img_left:img_left + cw]
+        return out
+
+
 class AvgPool2d:
     """Non-overlapping k x k mean of an HWC array, zero-padded up to
     multiples of k first (tool/imutils.py:130-138, skimage's block_reduce)."""

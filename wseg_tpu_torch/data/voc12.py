@@ -1,7 +1,7 @@
-"""PASCAL VOC 2012 lists, image-level labels, the classification and stage-1
-training datasets, the multi-scale + flip inference dataset and the
-AffinityNet training dataset (counterpart of those parts of
-wseg_tpu/data/voc12.py).
+"""PASCAL VOC 2012 lists, image-level labels and datasets (counterpart of
+wseg_tpu/data/voc12.py): classification, stage-1 training, multi-scale (+
+flip) inference, the saliency variant, and AffinityNet training from CRF
+labels or from mask pngs.
 
 Labels come from an explicit cls_labels.npy, a cached one next to the VOC
 root (or the repo's voc12/), or the XML annotations, then cached. PIL is
@@ -166,6 +166,107 @@ class VOC12ClsDatasetMSF:
         img = self.load_image(idx)
         views = [self.normalize(v) for v in T.msf_views(img, self.scales, self.unit)]
         return self.img_name_list[idx], views, self.label_list[idx], (img.size[1], img.size[0])
+
+
+class VOC12ClsDatasetMS(VOC12ClsDatasetMSF):
+    """Multi-scale views without the flips (voc12/data.py:123-147). Items
+    are (name, views, label, (H, W))."""
+
+    def __getitem__(self, idx: int):
+        img = self.load_image(idx)
+        views = T.msf_views(img, self.scales, self.unit)[::2]
+        return (self.img_name_list[idx], [self.normalize(v) for v in views],
+                self.label_list[idx], (img.size[1], img.size[0]))
+
+
+class VOC12SaliencyDataset(VOC12ClsDataset):
+    """Classification samples with an aligned saliency map, the `eps`
+    branch's dataset (voc12/voc_saliency.py:59-86): grayscale pngs in
+    `saliency_root`, resized, flipped and cropped jointly with the image.
+    Items are (name, HWC float32 crop, (crop, crop, 1) map in [0, 1],
+    label). `rng` (a `random.Random`) draws the augmentation; without one,
+    the global `random` stream does, as in the JAX package."""
+
+    def __init__(self, img_name_list_path, voc12_root, saliency_root, crop_size=448,
+                 min_long=448, max_long=768, cls_labels_path=None, rng=None):
+        super().__init__(img_name_list_path, voc12_root, cls_labels_path)
+        self.saliency_root = saliency_root
+        self.crop = T.RandomCrop(crop_size)
+        self.jitter = T.ColorJitter(0.3, 0.3, 0.3, 0.1)
+        self.normalize = T.Normalize()
+        self.min_long = min_long
+        self.max_long = max_long
+        self.rng = rng
+
+    def __getitem__(self, idx: int):
+        import random
+
+        import PIL.Image
+
+        r = self.rng or random
+        name, img = self.img_name_list[idx], self.load_image(idx)
+        with PIL.Image.open(os.path.join(self.saliency_root, name + ".png")) as im:
+            sal = im.convert("L")
+        target_long = r.randint(self.min_long, self.max_long)
+        w, h = img.size
+        if w < h:
+            shape = (int(round(w * target_long / h)), target_long)
+        else:
+            shape = (target_long, int(round(h * target_long / w)))
+        img = img.resize(shape, PIL.Image.BICUBIC)
+        sal = sal.resize(shape, PIL.Image.BICUBIC)
+        if bool(r.getrandbits(1)):
+            img = img.transpose(PIL.Image.FLIP_LEFT_RIGHT)
+            sal = sal.transpose(PIL.Image.FLIP_LEFT_RIGHT)
+        arr = self.normalize(self.jitter(img, self.rng))
+        sal_arr = np.asarray(sal, np.float32)[..., None] / 255.0
+        box = self.crop.get_box(*arr.shape[:2], rng=self.rng)
+        return name, self.crop.apply(arr, box), self.crop.apply(sal_arr, box), self.label_list[idx]
+
+
+class VOC12AffGtDataset:
+    """AffinityNet samples from ground-truth (or pseudo) mask pngs
+    (voc12/data.py:263-304): image + label png -> jitter, a joint crop
+    (pad pixels labelled 255), normalize, a joint flip -> the label
+    subsampled 8x (nearest) -> radius-pair affinity targets. Items are (HWC
+    float32 crop, (bg_pos, fg_pos, neg)). `rng`: as VOC12SaliencyDataset."""
+
+    def __init__(self, img_name_list_path, label_dir, voc12_root, cropsize=448, radius=5,
+                 rng=None):
+        from wseg_tpu_torch.data.affinity_labels import ExtractAffinityLabelInRadius
+
+        self.img_name_list = load_img_name_list(img_name_list_path)
+        self.voc12_root = voc12_root
+        self.label_dir = label_dir
+        self.jitter = T.ColorJitter(0.3, 0.3, 0.3, 0.1)
+        self.normalize = T.Normalize()
+        self.crop = T.RandomCrop(cropsize)
+        self.extract = ExtractAffinityLabelInRadius(cropsize // 8, radius)
+        self.rng = rng
+
+    def __len__(self):
+        return len(self.img_name_list)
+
+    def __getitem__(self, idx: int):
+        import random
+
+        import PIL.Image
+
+        name = self.img_name_list[idx]
+        img = PIL.Image.open(get_img_path(name, self.voc12_root)).convert("RGB")
+        with PIL.Image.open(os.path.join(self.label_dir, name + ".png")) as im:
+            label = np.asarray(im).astype(np.float32)[..., None]
+        raw = np.asarray(self.jitter(img, self.rng), np.float32)
+        box = self.crop.get_box(*raw.shape[:2], rng=self.rng)
+        ct, cl, it_, il, ch, cw = box
+        size = self.crop.cropsize
+        lab = np.full((size, size, 1), 255.0, np.float32)
+        lab[ct:ct + ch, cl:cl + cw] = label[it_:it_ + ch, il:il + cw]
+        arr = self.normalize(self.crop.apply(raw, box))
+        if bool((self.rng or random).getrandbits(1)):
+            arr = np.fliplr(arr).copy()
+            lab = np.fliplr(lab).copy()
+        return arr, self.extract(lab[::8, ::8, 0].astype(np.uint8))
 
 
 class VOC12AffDataset:

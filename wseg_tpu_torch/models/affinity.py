@@ -15,9 +15,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from wseg_tpu_torch.models.layers import BatchNorm2d, conv, he_normal_, xavier_uniform_
+from wseg_tpu_torch.models.layers import conv, init_weights
 from wseg_tpu_torch.models.resnet38 import ResNet38
 from wseg_tpu_torch.ops.pairs import (
     dense_affinity_matrix,
@@ -57,19 +56,8 @@ class AffinityNet(ResNet38):
         self.f9 = conv(448, 448, 1)
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                if m is self.f9:
-                    xavier_uniform_(m.weight, generator, 4.0)
-                else:
-                    he_normal_(m.weight, generator)
-            elif isinstance(m, BatchNorm2d):
-                m.weight.fill_(1.0)
-                m.bias.fill_(0.0)
-                m.running_mean.fill_(0.0)
-                m.running_var.fill_(1.0)
+        init_weights(self, generator, {self.f9: 4.0})
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """The (N, 448, H/8, W/8) f9 features the affinities compare."""

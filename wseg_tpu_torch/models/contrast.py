@@ -15,10 +15,9 @@ differentiable ops/pcm.py formula.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from wseg_tpu_torch.kernels.pcm_cuda import pcm_fused_nchw
-from wseg_tpu_torch.models.layers import BatchNorm2d, Dropout2d, conv, he_normal_, xavier_uniform_
+from wseg_tpu_torch.models.layers import Dropout2d, conv, init_weights
 from wseg_tpu_torch.models.resnet38 import ResNet38, valid_mask
 from wseg_tpu_torch.ops.cam import cam_bg_complete
 from wseg_tpu_torch.ops.pcm import pcm
@@ -42,20 +41,8 @@ class ContrastNet(ResNet38):
         self.f9 = conv(3 + 64 + 128, 192, 1)
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
-        xavier_gain = {self.fc_proj: 1.0, self.fc8: 1.0, self.f9: 4.0}
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                if m in xavier_gain:
-                    xavier_uniform_(m.weight, generator, xavier_gain[m])
-                else:
-                    he_normal_(m.weight, generator)
-            elif isinstance(m, BatchNorm2d):
-                m.weight.fill_(1.0)
-                m.bias.fill_(0.0)
-                m.running_mean.fill_(0.0)
-                m.running_var.fill_(1.0)
+        init_weights(self, generator, {self.fc_proj: 1.0, self.fc8: 1.0, self.f9: 4.0})
 
     def forward(self, x: torch.Tensor, raw_cam: bool = False,
                 valid_hw: torch.Tensor | None = None):

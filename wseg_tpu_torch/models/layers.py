@@ -125,3 +125,21 @@ def xavier_uniform_(w: torch.Tensor, generator: torch.Generator,
     rf = w.shape[2] * w.shape[3]
     a = gain * math.sqrt(6.0 / (w.shape[1] * rf + w.shape[0] * rf))
     return w.uniform_(-a, a, generator=generator)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator, xavier_gain: dict) -> None:
+    """The stage-1 and stage-2 nets' init, drawn from `generator` in module
+    order: Xavier-uniform kernels for the convs in `xavier_gain` (module ->
+    gain), He-normal for every other conv, identity BN."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            if m in xavier_gain:
+                xavier_uniform_(m.weight, generator, xavier_gain[m])
+            else:
+                he_normal_(m.weight, generator)
+        elif isinstance(m, BatchNorm2d):
+            m.weight.fill_(1.0)
+            m.bias.fill_(0.0)
+            m.running_mean.fill_(0.0)
+            m.running_var.fill_(1.0)

@@ -1,13 +1,16 @@
 """Stage-3 backbones, NCHW: the dilated ResNet family and the ResNet-38
 variant (counterpart of wseg_tpu/seg/backbones.py; reference
-segmentation/lib/net/backbone/{resnet,resnet38d}.py).
+segmentation/lib/net/backbone/{resnet,resnet38d}.py). Xception is
+seg/xception.py.
 
 Every BN trains with batch statistics (`frozen=False`). Module names are the
 reference's, so `state_dict()` keys equal its keys: the deep-base stem is the
-Sequential `conv1.{0,1,3,4,6}` (conv, bn, relu, conv, bn, relu, conv), then
-`bn1`, `layerX.i.{conv1,bn1,...}` and `layerX.0.downsample.{0,1}`. The JAX
-package's undilated and 7x7-stem variants are set by no registered backbone
-and are not ported.
+Sequential `conv1.{0,1,3,4,6}` (conv, bn, relu, conv, bn, relu, conv), the
+7x7 stem (`deep_base=False`) the conv `conv1`, then `bn1`,
+`layerX.i.{conv1,bn1,...}` and `layerX.0.downsample.{0,1}`.
+
+Each backbone returns a list of feature taps and declares each tap's stride
+(`feature_strides`) and channels (`feature_dims`).
 
 `valid_hw` (N, 2) marks per-sample valid regions when a batch is zero-padded
 to a common (bucketed) shape: the pad halo is re-zeroed after every relu,
@@ -86,25 +89,37 @@ class Bottleneck(nn.Module):
 
 
 class DilatedResNet(nn.Module):
-    """Returns [l1, l2, l3, l4] like the reference's ResNet.forward: the
-    deep 3x3x3 stem, then layers 3 / 4 dilated 2 / 4 for output stride 8;
-    `multi_grid` gives layer4's blocks dilations (3, 4, 5)."""
+    """Returns [l1, l2, l3, l4] like the reference's ResNet.forward. The
+    deep 3x3x3 stem (`deep_base`) or a 7x7 one; `dilated` keeps layers 3 / 4
+    at stride 8 with dilations 2 / 4 (output stride 8), else they stride 2
+    each (output stride 32); `multi_grid` gives layer4's blocks dilations
+    (3, 4, 5)."""
 
     MULTI_GRID = (3, 4, 5)
-    # (planes, stride, dilation, input stride, output stride) of each layer
-    LAYERS = ((64, 1, 1, 4, 4), (128, 2, 1, 4, 8), (256, 1, 2, 8, 8), (512, 1, 4, 8, 8))
-    feature_strides = (4, 8, 8, 8)
 
-    def __init__(self, block, layers, multi_grid: bool = False, bn_mom: float = 0.1):
+    def __init__(self, block, layers, dilated: bool = True, multi_grid: bool = False,
+                 deep_base: bool = True, bn_mom: float = 0.1):
         super().__init__()
         bn = _bn(bn_mom)
-        self.conv1 = nn.Sequential(
-            conv(3, 64, 3, 2, padding=1), bn(64), nn.ReLU(),
-            conv(64, 64, 3, 1, padding=1), bn(64), nn.ReLU(),
-            conv(64, 128, 3, 1, padding=1))
-        self.bn1 = bn(128)
-        inplanes = 128
-        for li, ((planes, stride, dilation, _, _), n) in enumerate(zip(self.LAYERS, layers)):
+        # (planes, stride, dilation, input stride, output stride) of each layer
+        self.layer_specs = ((64, 1, 1, 4, 4), (128, 2, 1, 4, 8)) + (
+            ((256, 1, 2, 8, 8), (512, 1, 4, 8, 8)) if dilated
+            else ((256, 2, 1, 8, 16), (512, 2, 1, 16, 32)))
+        self.feature_strides = tuple(spec[-1] for spec in self.layer_specs)
+        self.feature_dims = tuple(spec[0] * block.expansion for spec in self.layer_specs)
+        self.deep_base = deep_base
+        if deep_base:
+            self.conv1 = nn.Sequential(
+                conv(3, 64, 3, 2, padding=1), bn(64), nn.ReLU(),
+                conv(64, 64, 3, 1, padding=1), bn(64), nn.ReLU(),
+                conv(64, 128, 3, 1, padding=1))
+            inplanes = 128
+        else:
+            self.conv1 = conv(3, 64, 7, 2, padding=3)
+            inplanes = 64
+        self.bn1 = bn(inplanes)
+        for li, ((planes, stride, dilation, _, _), n) in enumerate(zip(self.layer_specs,
+                                                                        layers)):
             blocks = nn.ModuleList()
             grid = multi_grid and li == 3
             for i in range(n):
@@ -131,16 +146,21 @@ class DilatedResNet(nn.Module):
             return valid_mask(valid_hw, (-(-h0 // stride), -(-w0 // stride)),
                               stride).to(x.dtype)
 
-        m2, c = mask(2), self.conv1
-        x = apply_mask(torch.relu(c[1](c[0](x))), m2)
-        x = apply_mask(torch.relu(c[4](c[3](x))), m2)
-        x = apply_mask(torch.relu(self.bn1(c[6](x))), m2)
+        m2 = mask(2)
+        if self.deep_base:
+            c = self.conv1
+            x = apply_mask(torch.relu(c[1](c[0](x))), m2)
+            x = apply_mask(torch.relu(c[4](c[3](x))), m2)
+            x = c[6](x)
+        else:
+            x = self.conv1(x)
+        x = apply_mask(torch.relu(self.bn1(x)), m2)
         # valid outputs of the pool are pad-safe after the relu, but halo
         # outputs pick up valid values through the window overlap: re-zero
         # them before the first 3x3 block conv reads the halo
         x = apply_mask(F.max_pool2d(x, 3, stride=2, padding=1), mask(4))
         taps = []
-        for li, (*_, s_in, s_out) in enumerate(self.LAYERS):
+        for li, (*_, s_in, s_out) in enumerate(self.layer_specs):
             m_in, m_out = mask(s_in), mask(s_out)
             for i, blk in enumerate(getattr(self, f"layer{li + 1}")):
                 x = blk(x, mask_in=m_in if i == 0 else m_out, mask_out=m_out)
@@ -157,6 +177,7 @@ class SegResNet38(ResNet38):
 
     OUTPUT_DIM = 4096
     feature_strides = (8, 8, 8)
+    feature_dims = (512, 1024, 4096)
 
     def __init__(self):
         super().__init__(bn_frozen=False)

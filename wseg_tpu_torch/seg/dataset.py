@@ -208,4 +208,8 @@ class VOCSegDataset:
 
 
 def generate_dataset(cfg: SegConfig, period: str, transform: str = "none", **kw):
+    """The registered dataset of `cfg.DATA_NAME`: VOC, or one of
+    seg/extra_datasets.py's."""
+    from wseg_tpu_torch.seg import extra_datasets  # noqa: F401  (registers them)
+
     return DATASETS.get(cfg.DATA_NAME)(cfg, period, transform, **kw)

@@ -12,7 +12,7 @@ network/resnet38_contrast.py:77-96):
 
 Stage 3 labels its parameters otherwise (`seg_label_params`): every conv of
 the backbone is pretrained, conv1a and b2* included, the head's convs are
-scratch, and only BN affine is frozen.
+scratch (DeepLab v1-caffe's only cls_conv), and only BN affine is frozen.
 
 lr schedule: base_lr * (1 - min(step, max_step) / max_step) ** power, step
 counted from 0 (torchutils.py:25-29).
@@ -61,14 +61,20 @@ def label_params(model: nn.Module) -> dict[str, str]:
     return labels
 
 
-def seg_label_params(model: nn.Module) -> dict[str, str]:
+def seg_label_params(model: nn.Module, scratch_mods: tuple | None = None) -> dict[str, str]:
     """Stage-3 group labels (seg_param_labels, wseg_tpu/seg/deeplab.py:349-377;
     the reference's get_parameter_groups, deeplabv1.py:53-69): conv weights
     and biases only. A parameter of a BatchNorm is frozen: the JAX package
     tests whether any module name on the path contains "bn", which names
     exactly its BNs; the port's Sequential BNs (`conv1.1`, `downsample.1`,
     `aspp.branch1.1`) carry an index, so it tests the module's type. Every
-    other backbone parameter is pretrained, the head's are scratch."""
+    other backbone parameter is pretrained. A head parameter is scratch when
+    `scratch_mods` is None or a module on its path is one of them, else
+    pretrained. `scratch_mods` defaults to the net's FROM_SCRATCH, as the
+    JAX seg_train passes it: DeepLabV1Caffe's ("cls_conv",) puts conv_fov
+    and conv_fov2 in the pretrained groups (deeplabv1.py:88)."""
+    if scratch_mods is None:
+        scratch_mods = getattr(model, "FROM_SCRATCH", None)
     labels = {}
     for mod_name, mod in model.named_modules():
         for leaf, _ in mod.named_parameters(recurse=False):
@@ -76,7 +82,9 @@ def seg_label_params(model: nn.Module) -> dict[str, str]:
             if isinstance(mod, BatchNorm2d):
                 labels[name] = "frozen"
                 continue
-            kind = "pretrained" if mod_name.startswith("backbone.") else "scratch"
+            scratch = not mod_name.startswith("backbone.") and (
+                scratch_mods is None or any(m in scratch_mods for m in mod_name.split(".")))
+            kind = "scratch" if scratch else "pretrained"
             labels[name] = f"{kind}_{'b' if leaf == 'bias' else 'w'}"
     return labels
 

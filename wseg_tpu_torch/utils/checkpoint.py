@@ -82,13 +82,21 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping) -> dict[str, torc
     return _from_jax(params, batch_stats, _module_key)
 
 
-# the JAX DilatedResNet's deep-base stem -> the reference's Sequential indices
+# the JAX DilatedResNet's stems (deep base: the reference's Sequential
+# indices; 7x7: `conv1`) and Xception's entry convs
 _SEG_STEM = {"conv1_0": "conv1.0", "conv1_bn0": "conv1.1", "conv1_1": "conv1.3",
-             "conv1_bn1": "conv1.4", "conv1_2": "conv1.6", "bn1": "bn1"}
+             "conv1_bn1": "conv1.4", "conv1_2": "conv1.6", "bn1": "bn1", "conv1": "conv1",
+             "conv2": "conv2", "bn2": "bn2"}
 _SEG_BLOCK = {"conv1": "conv1", "bn1": "bn1", "conv2": "conv2", "bn2": "bn2",
               "conv3": "conv3", "bn3": "bn3", "downsample_conv": "downsample.0",
               "downsample_bn": "downsample.1"}
 _SEG_HEAD = ("conv_fov", "bn_fov", "conv_fov2", "bn_fov2", "cls_conv")
+# Xception's modules below `backbone`, named as the reference's
+_XCEPTION = re.compile(r"block([1-9]|1[0-9]|20)/(skip|skipbn|sepconv[1-3]/"
+                       r"(depthwise|pointwise|bn1|bn2))|conv[3-5]/(depthwise|pointwise|bn1|bn2)")
+# (conv, bn) pairs that the port keeps as Sequential (conv, bn, relu)
+_CONV_BN = re.compile(r"branch[1-4]|conv_cat")
+_HEAD_CONV_BN = re.compile(r"bin\d+|shortcut_conv|cat_conv[12]")
 
 
 def _seg_module_key(path: tuple) -> str:
@@ -98,6 +106,8 @@ def _seg_module_key(path: tuple) -> str:
         key = ".".join(("backbone",) + mods[2:])
     elif mods[0] == "backbone" and len(mods) == 2 and mods[1] in _SEG_STEM:
         key = "backbone." + _SEG_STEM[mods[1]]
+    elif mods[0] == "backbone" and _XCEPTION.fullmatch("/".join(mods[1:])):
+        key = ".".join(mods)
     elif mods[0] == "backbone" and len(mods) == 3 and mods[2] in _SEG_BLOCK:
         m = re.fullmatch(r"(layer[1-4])_(\d+)", mods[1])
         if m:
@@ -105,8 +115,10 @@ def _seg_module_key(path: tuple) -> str:
     elif mods[0] == "aspp" and len(mods) == 2 and mods[1] in ("branch5_conv", "branch5_bn"):
         key = f"aspp.{mods[1]}"
     elif (mods[0] == "aspp" and len(mods) == 3 and mods[2] in ("conv", "bn")
-          and re.fullmatch(r"branch[1-4]|conv_cat", mods[1])):
+          and _CONV_BN.fullmatch(mods[1])):
         key = f"aspp.{mods[1]}.{0 if mods[2] == 'conv' else 1}"
+    elif len(mods) == 2 and mods[1] in ("conv", "bn") and _HEAD_CONV_BN.fullmatch(mods[0]):
+        key = f"{mods[0]}.{0 if mods[1] == 'conv' else 1}"
     elif len(mods) == 1 and mods[0] in _SEG_HEAD:
         key = mods[0]
     if key is None:
@@ -115,9 +127,10 @@ def _seg_module_key(path: tuple) -> str:
 
 
 def seg_state_dict_from_jax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
-    """The stage-3 nets' (params, batch_stats) trees (DeepLab v1 / v2 on
-    ResNet-38 or a dilated ResNet) -> a state_dict with the reference's keys.
-    Raises KeyError on any entry it cannot map."""
+    """The stage-3 nets' (params, batch_stats) trees (DeepLab v1, v1-caffe,
+    v2, v3 and v3+ on ResNet-38, a dilated or undilated ResNet or Xception;
+    the PPM operator) -> a state_dict with the reference's keys. Raises
+    KeyError on any entry it cannot map."""
     return _from_jax(params, batch_stats, _seg_module_key)
 
 

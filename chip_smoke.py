@@ -96,12 +96,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
      batch 10, f32 on cuDNN's heuristics (ms, images/s, peak memory, a
      profiled step); a bucketed eval forward of v3 (against exact) and v3+
      (card against CPU).
+ 23. data parallelism (wseg_tpu_torch/parallel/) on the card: a NCCL group
+     of world size 1 over a file store (the machine has one card; more
+     ranks are checked by the gloo CPU tests). One step of each trainer
+     (stage 1 at crop 64, stage 2 at crop 64, stage 3 v1 / ResNet-38 at
+     96x128, batch 2, dropout on) with the group against the same step
+     without one: losses, parameters and stage 3's running-stat updates
+     gated; CamInferencer with the group on 8 images at 384x512 in f32 (the
+     CLI's dtype): its cams equal the ones without a group, and K1 is held
+     against its plain twin on the inputs this path gave it;
+     parallel/spatial.py:pcm_spatial against ops/pcm.py.
 Stages 2 and 3 run no kernel of the port (stage 2's pair affinities, dense
 matrix and walk are plain PyTorch, as they are plain XLA in the JAX package;
 stage 3's convs are cuDNN's, as the JAX nets' are XLA's; the accelerator CRF
 is torch ops, as it is XLA ops there); phases 16, 17, 19 and 22 check
 that neither K1 nor K2 launched. K1's row counts its launches on phases 5,
-20 and 21, by path in `launches_by_path`.
+20, 21 and 23, by path in `launches_by_path`.
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit; the last line is {"ok": true, "device": {...}}.
 Weights are random, from a seed; nothing is downloaded.
@@ -110,6 +120,7 @@ Weights are random, from a seed; nothing is downloaded.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -2035,6 +2046,236 @@ def phase_seg_nets(card: str):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# data parallelism on the card
+
+# phase 23's gates, a step with a NCCL group of world size 1 against the same
+# step without one. Measured on an H100 80GB HBM3 at 700 W (PERF.md): metrics
+# equal; parameters <= 1.24e-6 of their max (stage 3's global-moment BN;
+# stages 1 and 2 <= 7.3e-8, cuDNN's backward); stage 3's running-stat
+# updates 4.08e-4 of their max, the float32 rounding of momentum-3e-4
+# updates, within one ulp of the stat.
+DP_LOSS_RTOL = 1e-6    # every metric, relative
+DP_PARAM_RTOL = 1e-5   # every parameter, of its tensor's largest entry
+DP_STATS_RTOL = 1e-4   # stage 3's running-stat updates, of their largest, plus 1 ulp
+
+
+def dp_step(kind: str, group) -> tuple[dict, dict, dict]:
+    """One train step of trainer `kind` on the card at a small crop, with
+    `group` (None: without one), dropout on, weights and draws from SEED:
+    (metrics, state_dict before, state_dict after), on the CPU."""
+    from wseg_tpu_torch.train.affinity import make_aff_train_step
+    from wseg_tpu_torch.train.optim import seg_label_params
+    from wseg_tpu_torch.train.seg import make_seg_train_step
+
+    rng = np.random.RandomState(SEED + 23)
+    steps = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    if kind == "contrast":
+        model = build_model("contrast", generator=torch.Generator().manual_seed(SEED))
+        opt = PolySGD(param_groups(model), 0.01, 5e-4, 100)
+        step = make_train_step(model, opt, 0.2, low_res=32, grad_clip=5.0, generator=steps,
+                               group=group)
+        label = torch.zeros(2, 20)
+        label[0, 2] = label[1, [6, 11, 14]] = 1
+        batch = (torch.from_numpy(rng.randn(2, 3, 64, 64).astype(np.float32) * 0.5), label)
+    elif kind == "affinity":
+        model = spread_affinities(build_model("affinity",
+                                              generator=torch.Generator().manual_seed(SEED)))
+        opt = PolySGD(param_groups(model), 1e-3, 5e-4, 100)
+        step = make_aff_train_step(model, opt, generator=steps, group=group)
+        batch = (torch.from_numpy(rng.randn(2, 3, 64, 64).astype(np.float32) * 0.5),
+                 *aff_targets(rng, 2, 8))
+    else:
+        cfg = seg_cfg("SEAM_deeplabv1_resnet38")
+        model = seg_net(cfg)
+        opt = PolySGD(param_groups(model, seg_label_params(model)), cfg.TRAIN_LR,
+                     cfg.TRAIN_WEIGHT_DECAY, cfg.TRAIN_ITERATION + 1, momentum=0.9)
+        step = make_seg_train_step(model, opt, generator=steps, group=group)
+        img, lab, _ = seg_parity_inputs()
+        batch = (img[:2], lab[:2])
+    before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    mets = step(*(t.cuda() for t in batch))
+    after = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return {k: float(v) for k, v in mets.items() if k != "pred"}, before, after
+
+
+def dp_inference_items(n: int = BATCH):
+    """n images' MSF views at 384x512 (4 scales x flip, normalised noise) and
+    labels, as CamInferencer.infer_batch takes them."""
+    rng = np.random.RandomState(SEED + 24)
+    items = []
+    for i in range(n):
+        views = []
+        for s in SCALES:
+            v = rng.randn(round(H0 * s), round(W0 * s), 3).astype(np.float32)
+            views += [v, v[:, ::-1].copy()]
+        lab = np.zeros(20, np.float32)
+        lab[[i % 20, (3 * i + 7) % 20]] = 1.0
+        items.append((views, lab, (H0, W0)))
+    return items
+
+
+def dp_miou_inputs(root: Path) -> tuple[str, str, list]:
+    """4 predicted and ground-truth pngs at 384x512 (255 on some pixels)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(SEED + 26)
+    pred, gt = root / "pred", root / "gt"
+    shutil.rmtree(root, ignore_errors=True)
+    pred.mkdir(parents=True)
+    gt.mkdir()
+    names = [f"im{i}" for i in range(4)]
+    for name in names:
+        g = rng.choice([0, 3, 8, 15, 255], size=(H0, W0)).astype(np.uint8)
+        p = np.where(rng.rand(H0, W0) < 0.7, g, rng.choice([0, 3, 8], size=(H0, W0)))
+        Image.fromarray(g).save(gt / f"{name}.png")
+        Image.fromarray(np.where(g == 255, 0, p).astype(np.uint8)).save(pred / f"{name}.png")
+    return str(pred), str(gt), names
+
+
+def dp_torchrun_join(card: str):
+    """Phase 23's second group, joined as the six CLIs join under torchrun:
+    RANK, WORLD_SIZE, LOCAL_RANK and MASTER_ADDR / MASTER_PORT (port 0: the
+    kernel picks a free one) in the environment, then
+    parallel/mesh.py:joined(resolve_device("cuda")). It must be NCCL (no
+    fallback) on the LOCAL_RANK'th card; the training group for a batch of
+    8 is the world; seg_test's mIoU reduction (all_reduce_array through the
+    card) equals the one without a group; the group is gone after the
+    `with` block."""
+    import torch.distributed as dist
+
+    from wseg_tpu_torch.eval.miou import do_python_eval
+    from wseg_tpu_torch.parallel.mesh import group_for_batch, joined
+    from wseg_tpu_torch.utils.device import resolve_device
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT="0")
+    saved = {k: os.environ.get(k) for k in env}
+    pred, gt, names = dp_miou_inputs(BUILD_SCRATCH / "dp_miou")
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = do_python_eval(pred, gt, names)
+    os.environ.update(env)
+    try:
+        device = resolve_device("cuda")
+        with joined(device) as world:
+            backend, current = dist.get_backend(world), torch.cuda.current_device()
+            sub, trains = group_for_batch(BATCH, world)
+            with contextlib.redirect_stdout(io.StringIO()):
+                got = do_python_eval(pred, gt, names, group=sub)
+        left = not dist.is_initialized()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"{card} | [data-parallel] torchrun environment (RANK 0, WORLD_SIZE 1, LOCAL_RANK 0): "
+          f"joined {backend} on {device} (current device {current}), training group for "
+          f"batch {BATCH} is the world: {sub is world and trains}, mIoU over the group "
+          f"{got['mIoU']:.4f} vs {want['mIoU']:.4f} without, group left: {left}", flush=True)
+    if not (backend == "nccl" and device == torch.device("cuda", 0) and current == 0
+            and sub is world and trains and got == want and left):
+        raise SystemExit("chip_smoke: joining from the torchrun environment went wrong")
+
+
+def phase_data_parallel(card: str) -> int:
+    """Phase 23: the data-parallel code path on the card in a NCCL group of
+    world size 1: over a file store (no port), a step of each trainer, the
+    data-parallel CamInferencer and pcm_spatial; then a group joined from
+    torchrun's environment (dp_torchrun_join). Returns K1's launches on the
+    data-parallel CamInferencer path."""
+    import torch.distributed as dist
+
+    from wseg_tpu_torch.parallel.mesh import shard_indices
+    from wseg_tpu_torch.parallel.spatial import pcm_spatial
+
+    store = BUILD_SCRATCH / "dp_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    # NCCL failing here is an error of this phase: nothing falls back to gloo
+    dist.init_process_group("nccl", init_method=store.as_uri(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        group = dist.group.WORLD
+        if dist.get_backend(group) != "nccl":
+            raise SystemExit(f"chip_smoke: the group's backend is {dist.get_backend(group)}")
+        for kind in ("contrast", "affinity", "seg"):
+            (m0, init, s0), (m1, _, s1) = dp_step(kind, None), dp_step(kind, group)
+            loss_err = max(abs(m1[k] - m0[k]) / max(abs(m0[k]), 1e-30) for k in m0)
+            params = [k for k in s0 if s0[k].is_floating_point()
+                      and not k.endswith(("running_mean", "running_var"))]
+            param_err = max(rel_err(s1[k], s0[k]) for k in params)
+            moved = sum(not torch.equal(s1[k], init[k]) for k in params)
+            stats = [k for k in s0 if k.endswith(("running_mean", "running_var"))]
+            stat_frac, stats_ok = 0.0, True  # the largest stat error over its bound
+            if kind == "seg":
+                for k in stats:
+                    du, dw = s1[k] - init[k], s0[k] - init[k]
+                    bound = DP_STATS_RTOL * float(dw.abs().max()) + float(
+                        np.spacing(np.float32(s0[k].abs().max())))
+                    stat_frac = max(stat_frac, float((du - dw).abs().max()) / bound)
+                    stats_ok &= float(dw.abs().max()) > 0
+                stats_ok &= stat_frac <= 1.0
+            else:
+                stats_ok = all(torch.equal(s1[k], s0[k]) for k in stats)
+            print(f"[data-parallel] {kind} step, NCCL group of 1 vs no group (f32, TF32 off, "
+                  f"dropout on): loss {m1['loss']:.6f} vs {m0['loss']:.6f}, metrics max rel err "
+                  f"{loss_err:.3e} (bound {DP_LOSS_RTOL}); {len(params)} parameters ({moved} "
+                  f"moved) max rel err {param_err:.3e} (bound {DP_PARAM_RTOL}); "
+                  f"{len(stats)} running stats" + (f", updates within {stat_frac:.3f} of "
+                                                   f"their bound ({DP_STATS_RTOL} of their "
+                                                   "max + 1 ulp)"
+                                                   if kind == "seg" else " unchanged, equal"),
+                  flush=True)
+            if not (loss_err <= DP_LOSS_RTOL and param_err <= DP_PARAM_RTOL and stats_ok
+                    and moved > 0):
+                raise SystemExit(f"chip_smoke: the data-parallel {kind} step disagrees with "
+                                 "the step without a group")
+
+        model = build_model("contrast", generator=torch.Generator().manual_seed(SEED)).eval()
+        items = dp_inference_items()
+        want = CamInferencer(model).infer_batch(items)
+        inferencer = CamInferencer(model, group=group)
+        pcm_cuda.reset_launches()
+        with pcm_calls_on_path() as seen:
+            t0 = time.perf_counter()
+            got = inferencer.infer_batch([items[i] for i in shard_indices(len(items), group)])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches, fma = pcm_cuda.launches, pcm_cuda.variant_launches["fma"]
+        if launches < 1 or len(got) != len(items):
+            raise SystemExit(f"chip_smoke: data-parallel CamInferencer launched {launches} PCM "
+                             f"kernels for {len(got)} of {len(items)} images")
+        for g, w in zip(got, want):
+            check_fused(torch.from_numpy(g), (20, H0, W0))
+            if not np.array_equal(g, w):
+                raise SystemExit("chip_smoke: data-parallel CamInferencer's cams differ from "
+                                 "the ones without a group")
+        err = hold_pcm_on_path("data-parallel CamInferencer f32", seen)
+        del seen, model, inferencer
+        torch.cuda.empty_cache()
+        print(f"{card} | data-parallel CamInferencer (NCCL group of 1), {len(items)} images "
+              f"384x512, 4 scales x flip, f32: {dt:.2f} s, PCM launches {launches} "
+              f"({fma} f32 FMA), cams equal to no group, K1 max abs err {err:.3e}", flush=True)
+
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+        cam = torch.rand(2, 3072, 21, generator=gen, device="cuda")
+        f = torch.randn(2, 3072, 192, generator=gen, device="cuda")
+        got, want = pcm_spatial(cam, f, group), pcm_flat(cam, f)
+        ok = bool(torch.allclose(got, want, rtol=1e-4, atol=1e-5))
+        print(f"[data-parallel] pcm_spatial (NCCL group of 1) vs ops/pcm.py pcm_flat at (2, "
+              f"3072, 192) f32: max abs err {float((got - want).abs().max()):.3e} within rtol "
+              f"1e-4 atol 1e-5: {ok}", flush=True)
+        if not ok:
+            raise SystemExit("chip_smoke: pcm_spatial disagrees with the dense PCM")
+    finally:
+        dist.destroy_process_group()
+    dp_torchrun_join(card)
+    return launches
+
+
 def timed(name: str, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -2070,6 +2311,8 @@ def main() -> int:
     by_path.update(timed("20 bench twin", phase_bench, card))
     by_path["SEAMNet forward (phase 21)"] = timed("21 SEAMNet", phase_seam, card)
     timed("22 stage-3 nets", phase_seg_nets, card)
+    by_path["data-parallel CamInferencer, f32 (phase 23)"] = timed(
+        "23 data parallel", phase_data_parallel, card)
     pcm_row["launches"] = sum(by_path.values())
     pcm_row["launches_by_path"] = by_path
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -11,6 +11,10 @@ once per bucket shape (`cudnn.benchmark`).
     python -m wseg_tpu_torch.cli.aff_infer --weights aff.pth|aff.ckpt \\
         --infer_list voc12/train.txt --voc12_root VOC2012 --cam_dir out_cam \\
         --out_rw out_rw
+
+Under torchrun (`torchrun --nproc_per_node <gpus> -m
+wseg_tpu_torch.cli.aff_infer ...`) each rank refines and writes its own
+contiguous block of the list, every image on exactly one rank.
 """
 
 from __future__ import annotations
@@ -43,6 +47,18 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", type=str)
     args = parser.parse_args(argv)
 
+    from wseg_tpu_torch.parallel.mesh import joined, sync
+    from wseg_tpu_torch.utils.device import resolve_device
+    from wseg_tpu_torch.utils.logging import rank_logger
+
+    device = resolve_device(args.device)
+    with joined(device) as group, rank_logger(None, group):
+        _infer(args, device, group)
+        sync(group)  # every rank's files are written
+        print("done")
+
+
+def _infer(args, device, group):
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -54,14 +70,15 @@ def main(argv=None):
     from wseg_tpu_torch.infer.cam import write_png
     from wseg_tpu_torch.infer.rw import RandomWalkRefiner
     from wseg_tpu_torch.models import build_model
+    from wseg_tpu_torch.parallel.mesh import shard_indices
     from wseg_tpu_torch.utils.checkpoint import load_weights
     from wseg_tpu_torch.utils.logging import Timer
 
-    model = build_model(args.network, device=args.device)
+    model = build_model(args.network, device=device)
     model.load_state_dict(load_weights(args.weights), strict=True)
     refiner = RandomWalkRefiner(
         model, beta=args.beta, logt=args.logt, bucket=args.bucket,
-        walk_dtype=torch.bfloat16 if args.walk_dtype == "bfloat16" else None)
+        walk_dtype=torch.bfloat16 if args.walk_dtype == "bfloat16" else None, group=group)
     if refiner.device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -70,6 +87,7 @@ def main(argv=None):
     batch_size = args.batch_size or 96
     normalize = Normalize()
     name_list = load_img_name_list(args.infer_list)
+    name_list = [name_list[i] for i in shard_indices(len(name_list), group)]  # this rank's
     timer = Timer("RW infer started: ")
 
     def load_item(name):
@@ -112,7 +130,6 @@ def main(argv=None):
             if done // 50 > prev // 50 or done == len(name_list):
                 timer.update_progress(done / len(name_list))
                 print(f"{done}/{len(name_list)}, fin: {timer.str_est_finish()}", flush=True)
-    print("done")
 
 
 if __name__ == "__main__":

@@ -13,6 +13,12 @@ interrupted, step for step. Writes `result/<session_name>/aff_train.pth`
 (the resumable state, with `--save_every_epoch`),
 `result/<session_name>/aff.pth` (weights with the reference's key names) and
 the run's stdout to `result/<session_name>/aff.log`.
+
+Data parallel under torchrun (`torchrun --nproc_per_node <gpus> -m
+wseg_tpu_torch.cli.aff_train ...`; NCCL, or gloo with `--device cpu`):
+`--batch_size` is the global batch, each rank trains on its rows of it and
+the run is the one-process run at that batch (parallel/mesh.py). Rank 0
+alone writes the log and the checkpoints; every rank reads `--resume`.
 """
 
 from __future__ import annotations
@@ -72,13 +78,17 @@ def main(argv=None):
             "train from init weights with a misleading global_step/lr; pass --resume "
             "<train state> (or drop --start_epoch).")
 
-    from wseg_tpu_torch.utils.logging import Logger
+    from wseg_tpu_torch.parallel.mesh import joined
+    from wseg_tpu_torch.utils.device import resolve_device
+    from wseg_tpu_torch.utils.logging import rank_logger
 
-    with Logger(os.path.join("result", args.session_name, "aff.log")):
-        _train(args)
+    device = resolve_device(args.device)
+    with joined(device) as world, \
+            rank_logger(os.path.join("result", args.session_name, "aff.log"), world):
+        _train(args, device, world)
 
 
-def _train(args):
+def _train(args, device, world):
     import random
 
     import numpy as np
@@ -92,14 +102,19 @@ def _train(args):
     from wseg_tpu_torch.utils.checkpoint import (
         load_train_state, load_weights, merge_state_dict, save_train_state, save_weights,
     )
-    from wseg_tpu_torch.utils.device import resolve_device
+    from wseg_tpu_torch.parallel.mesh import (
+        broadcast_module, group_for_batch, rank_of, shard_of, sync,
+    )
     from wseg_tpu_torch.utils.logging import AverageMeter, Timer
 
     random.seed(args.seed)  # host-side augmentation without det_seed
     np.random.seed(args.seed)
     print(vars(args))
 
-    device = resolve_device(args.device)
+    group, trains = group_for_batch(args.batch_size, world)
+    if not trains:
+        return
+    lead = rank_of(group) == 0  # writes the checkpoints
     model = build_model(args.network, device=device,
                         generator=torch.Generator().manual_seed(args.seed))
     if args.weights:
@@ -110,7 +125,8 @@ def _train(args):
     dataset = VOC12AffDataset(args.train_list, args.la_crf_dir, args.ha_crf_dir,
                               args.voc12_root, cropsize=args.crop_size, det_seed=args.seed)
     loader = DataLoader(dataset, args.batch_size, num_workers=args.num_workers, seed=args.seed,
-                        pin_memory=device.type == "cuda", collate=collate)
+                        pin_memory=device.type == "cuda", collate=collate,
+                        shard=shard_of(group))
     steps_per_epoch = len(dataset) // args.batch_size
     max_step = steps_per_epoch * args.max_epoches
 
@@ -126,7 +142,8 @@ def _train(args):
                 f"--start_epoch {args.start_epoch} starts at step {global_step}; pass the "
                 "start epoch that the file's save message named.")
         print(f"resumed full train state from {args.resume}")
-    step_fn = make_aff_train_step(model, optimizer, generator=generator)
+    broadcast_module(model, group)
+    step_fn = make_aff_train_step(model, optimizer, generator=generator, group=group)
     if device.type == "cuda":
         # one autotune for the one crop shape: in a fresh process cuDNN's
         # heuristic picked a direct conv kernel that made the f32 step at crop
@@ -164,7 +181,9 @@ def _train(args):
         timer.reset_stage()
         if args.save_every_epoch:
             ep_ckpt = os.path.join(out_dir, "aff_train.pth")
-            save_train_state(ep_ckpt, model, optimizer, global_step, generator)
+            sync(group)
+            if lead:
+                save_train_state(ep_ckpt, model, optimizer, global_step, generator)
             print(f"epoch {ep}: saved resumable state to {ep_ckpt} "
                   f"(continue with --resume <ckpt> --start_epoch {ep + 1})", flush=True)
         if args.stop_after_epoch and ep + 1 >= args.stop_after_epoch:
@@ -173,7 +192,9 @@ def _train(args):
             return
 
     out = os.path.join(out_dir, WEIGHTS)
-    save_weights(out, model)
+    sync(group)
+    if lead:
+        save_weights(out, model)
     print(f"saved {out}")
 
 

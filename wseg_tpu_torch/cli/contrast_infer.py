@@ -9,6 +9,10 @@ Runs on the GPU unless `--device cpu`.
 
     python -m wseg_tpu_torch.cli.contrast_infer --weights W.pth|W.ckpt \\
         --infer_list voc12/train.txt --voc12_root VOC2012 --out_cam out_cam
+
+Under torchrun (`torchrun --nproc_per_node <gpus> -m
+wseg_tpu_torch.cli.contrast_infer ...`) each rank infers and writes its own
+contiguous block of the list, every image on exactly one rank.
 """
 
 from __future__ import annotations
@@ -43,19 +47,33 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", type=str)
     args = parser.parse_args(argv)
 
+    from wseg_tpu_torch.infer.crf_post import check_backend
+    from wseg_tpu_torch.parallel.mesh import joined, sync
+    from wseg_tpu_torch.utils.device import resolve_device
+    from wseg_tpu_torch.utils.logging import rank_logger
+
+    check_backend(args.crf_backend)
+    device = resolve_device(args.device)
+    with joined(device) as group, rank_logger(None, group):
+        _infer(args, device, group)
+        sync(group)  # every rank's files are written
+        print("done")
+
+
+def _infer(args, device, group):
     import os
 
     import numpy as np
 
     from wseg_tpu_torch.data.voc12 import VOC12ClsDatasetMSF, get_img_path
     from wseg_tpu_torch.infer.cam import CamInferencer, save_cam_dict, save_cam_pred
-    from wseg_tpu_torch.infer.crf_post import check_backend, crf_from_cam_dict
+    from wseg_tpu_torch.infer.crf_post import crf_from_cam_dict
     from wseg_tpu_torch.models import build_model
+    from wseg_tpu_torch.parallel.mesh import shard_indices
     from wseg_tpu_torch.utils.checkpoint import load_weights
     from wseg_tpu_torch.utils.logging import Timer
 
-    check_backend(args.crf_backend)
-    model = build_model(args.network, device=args.device)
+    model = build_model(args.network, device=device)
     if args.crf_backend == "tpu":
         import torch
 
@@ -63,11 +81,13 @@ def main(argv=None):
     model.load_state_dict(load_weights(args.weights), strict=True)
 
     dataset = VOC12ClsDatasetMSF(args.infer_list, args.voc12_root)
-    inferencer = CamInferencer(model, bucket=args.bucket or None)
+    inferencer = CamInferencer(model, bucket=args.bucket or None, group=group)
+    mine = shard_indices(len(dataset), group)  # this rank's images
     batch_size = 1 if args.device_msf else max(args.batch_size, 1)
     timer = Timer("Infer started: ")
 
-    def prepare(idx):
+    def prepare(pos):
+        idx = mine[pos]
         if args.device_msf:
             name = dataset.img_name_list[idx]
             return name, np.array(dataset.load_image(idx)), dataset.label_list[idx], None
@@ -86,7 +106,7 @@ def main(argv=None):
             crf_futures.append(crf_pool.submit(
                 crf_from_cam_dict, cam_dict, get_img_path(name, args.voc12_root),
                 os.path.join(args.out_crf, name + ".png"), t=args.crf_iters,
-                backend=args.crf_backend, device=args.device))
+                backend=args.crf_backend, device=device))
 
     # host-side decode and view scaling run ahead of the device work in a
     # bounded window of threads (PIL releases the GIL); the native CRF runs on
@@ -96,14 +116,14 @@ def main(argv=None):
     with ThreadPoolExecutor(max_workers=4) as pool, \
             ThreadPoolExecutor(max_workers=crf_workers) as crf_pool:
         window = max(4, batch_size)
-        pending = deque(pool.submit(prepare, i) for i in range(min(window, len(dataset))))
+        pending = deque(pool.submit(prepare, i) for i in range(min(window, len(mine))))
         done = 0
-        while done < len(dataset):
+        while done < len(mine):
             chunk = []
-            for _ in range(min(batch_size, len(dataset) - done)):
+            for _ in range(min(batch_size, len(mine) - done)):
                 chunk.append(pending.popleft().result())
                 nxt = done + len(chunk) + len(pending)
-                if nxt < len(dataset):
+                if nxt < len(mine):
                     pending.append(pool.submit(prepare, nxt))
             if args.device_msf:
                 name, img, label, _ = chunk[0]
@@ -118,11 +138,10 @@ def main(argv=None):
                 write_outputs(name, norm_cam, label)
             done += len(chunk)
             if done % 50 < len(chunk):
-                timer.update_progress(done / len(dataset))
-                print(f"{done}/{len(dataset)} imgs, fin: {timer.str_est_finish()}", flush=True)
+                timer.update_progress(done / len(mine))
+                print(f"{done}/{len(mine)} imgs, fin: {timer.str_est_finish()}", flush=True)
         for f in crf_futures:
             f.result()
-    print("done")
 
 
 if __name__ == "__main__":

@@ -14,6 +14,12 @@ ImageNet `.params`, leaves the heads at init). Writes
 `--save_every_epoch`), `result/<session_name>/contrast.pth` (weights with
 the reference's key names) at the end, and the run's stdout to
 `result/<session_name>/contrast.log`; `--profile_dir` traces steps 10-14.
+
+Data parallel under torchrun (`torchrun --nproc_per_node <gpus> -m
+wseg_tpu_torch.cli.contrast_train ...`; NCCL, or gloo with `--device cpu`):
+`--batch_size` is the global batch, each rank trains on its rows of it and
+the run is the one-process run at that batch (parallel/mesh.py). Rank 0
+alone writes the log and the checkpoints; every rank reads `--resume`.
 """
 
 from __future__ import annotations
@@ -81,13 +87,17 @@ def main(argv=None):
             "train from init weights with a misleading global_step/lr; pass --resume "
             "<train state> (or drop --start_epoch).")
 
-    from wseg_tpu_torch.utils.logging import Logger
+    from wseg_tpu_torch.parallel.mesh import joined
+    from wseg_tpu_torch.utils.device import resolve_device
+    from wseg_tpu_torch.utils.logging import rank_logger
 
-    with Logger(os.path.join("result", args.session_name, "contrast.log")):
-        _train(args)
+    device = resolve_device(args.device)
+    with joined(device) as world, \
+            rank_logger(os.path.join("result", args.session_name, "contrast.log"), world):
+        _train(args, device, world)
 
 
-def _train(args):
+def _train(args, device, world):
     import random
 
     import numpy as np
@@ -101,7 +111,9 @@ def _train(args):
     from wseg_tpu_torch.utils.checkpoint import (
         load_train_state, load_weights, merge_state_dict, save_train_state, save_weights,
     )
-    from wseg_tpu_torch.utils.device import resolve_device
+    from wseg_tpu_torch.parallel.mesh import (
+        broadcast_module, group_for_batch, rank_of, shard_of, sync,
+    )
     from wseg_tpu_torch.utils.logging import AverageMeter, ScalarWriter, Timer
     from wseg_tpu_torch.utils.profiling import annotate, trace
 
@@ -109,7 +121,10 @@ def _train(args):
     np.random.seed(args.seed)
     print(vars(args))
 
-    device = resolve_device(args.device)
+    group, trains = group_for_batch(args.batch_size, world)
+    if not trains:
+        return
+    lead = rank_of(group) == 0  # writes the checkpoints, the scalar log and the trace
     model = build_model(args.network, device=device,
                         generator=torch.Generator().manual_seed(args.seed))
     if args.weights:
@@ -117,13 +132,14 @@ def _train(args):
                                                what=f"pretrained weights from {args.weights}"),
                               strict=True)
         print(f"loaded pretrained weights from {args.weights}")
-    tblogger = ScalarWriter(args.tblog_dir)
+    tblogger = ScalarWriter(args.tblog_dir) if lead else None
 
     dataset = ContrastTrainDataset(
         args.train_list, args.voc12_root, crop_size=args.crop_size,
         min_long=args.min_long, max_long=args.max_long, det_seed=args.seed)
     loader = DataLoader(dataset, args.batch_size, num_workers=args.num_workers,
-                        seed=args.seed, pin_memory=device.type == "cuda")
+                        seed=args.seed, pin_memory=device.type == "cuda",
+                        shard=shard_of(group))
     steps_per_epoch = len(dataset) // args.batch_size
     max_step = steps_per_epoch * args.max_epoches
 
@@ -139,10 +155,11 @@ def _train(args):
                 f"--start_epoch {args.start_epoch} starts at step {global_step}; pass the "
                 "start epoch that the file's save message named.")
         print(f"resumed full train state from {args.resume}")
+    broadcast_module(model, group)
     compute_dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else None
     step_fn = make_train_step(model, optimizer, args.bg_threshold, low_res=args.low_res,
                               compute_dtype=compute_dtype, grad_clip=args.grad_clip,
-                              generator=generator)
+                              generator=generator, group=group)
 
     out_dir = os.path.join("result", args.session_name)
     avg_meter = AverageMeter()
@@ -153,7 +170,7 @@ def _train(args):
     for ep in range(args.start_epoch, args.max_epoches):
         loader.set_epoch(ep)
         for it, (_, imgs, labels) in enumerate(loader):
-            if args.profile_dir and global_step == 10:
+            if args.profile_dir and lead and global_step == 10:
                 profiler.enter_context(trace(args.profile_dir))
             if global_step == 15:
                 profiler.close()
@@ -182,15 +199,18 @@ def _train(args):
                     "lr: %.4f" % lr,
                     flush=True,
                 )
-                tblogger.add_scalars("loss", {k: float(v) for k, v in metrics.items()},
-                                     global_step - 1)
-                tblogger.add_scalar("lr", lr, global_step - 1)
+                if lead:
+                    tblogger.add_scalars("loss", {k: float(v) for k, v in metrics.items()},
+                                         global_step - 1)
+                    tblogger.add_scalar("lr", lr, global_step - 1)
                 avg_meter.pop()
         print("")
         timer.reset_stage()
         if args.save_every_epoch:
             ep_ckpt = os.path.join(out_dir, "contrast_train.pth")
-            save_train_state(ep_ckpt, model, optimizer, global_step, generator)
+            sync(group)
+            if lead:
+                save_train_state(ep_ckpt, model, optimizer, global_step, generator)
             print(f"epoch {ep}: saved resumable state to {ep_ckpt} "
                   f"(continue with --resume <ckpt> --start_epoch {ep + 1})", flush=True)
         if args.stop_after_epoch and ep + 1 >= args.stop_after_epoch:
@@ -202,7 +222,9 @@ def _train(args):
 
     print(args.session_name)
     out = os.path.join(out_dir, WEIGHTS)
-    save_weights(out, model)
+    sync(group)
+    if lead:
+        save_weights(out, model)
     print(f"saved {out}")
 
 

@@ -14,6 +14,11 @@ image), flips back, averages the 12 views, takes the softmax and runs the
 CRF (bilateral sxy 32, one iteration) on a thread pool beside the next
 chunk's forward. pngs land under `results/Segmentation/<model>_<period>/`,
 mIoU in `log/<exp>/logfile.txt`.
+
+Under torchrun (`torchrun --nproc_per_node <gpus> -m
+wseg_tpu_torch.cli.seg_test ...`) each rank tests and writes its own
+contiguous block of the images; the confusion matrices are summed over the
+ranks, so the mIoU is the whole set's, logged by rank 0.
 """
 
 from __future__ import annotations
@@ -127,9 +132,17 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from wseg_tpu_torch.infer.crf_post import check_backend
+    from wseg_tpu_torch.parallel.mesh import joined
+    from wseg_tpu_torch.utils.device import resolve_device
+    from wseg_tpu_torch.utils.logging import rank_logger
 
     check_backend(args.crf_backend)
+    device = resolve_device(args.device)
+    with joined(device) as group, rank_logger(None, group):
+        _test(args, device, group)
 
+
+def _test(args, device, group):
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -137,17 +150,16 @@ def main(argv=None):
 
     from wseg_tpu_torch.ops.crf import dense_crf_tpu
     from wseg_tpu_torch.ops.densecrf import dense_crf
+    from wseg_tpu_torch.parallel.mesh import broadcast_module, rank_of, shard_indices, sync
     from wseg_tpu_torch.seg.config import EXPERIMENTS
     from wseg_tpu_torch.seg.dataset import generate_dataset
     from wseg_tpu_torch.seg.deeplab import generate_net
     from wseg_tpu_torch.utils.checkpoint import load_weights
-    from wseg_tpu_torch.utils.device import resolve_device
     from wseg_tpu_torch.utils.logging import Timer, writelog
 
     cfg = EXPERIMENTS[args.exp].replace(DATA_ROOT=args.data_root, TEST_CKPT=args.ckpt)
     if args.no_crf:
         cfg = cfg.replace(TEST_CRF=False)
-    device = resolve_device(args.device)
     crf = functools.partial(dense_crf_tpu, device=device) if args.crf_backend == "tpu" \
         else dense_crf
     if device.type == "cuda":
@@ -158,7 +170,9 @@ def main(argv=None):
     dataset = generate_dataset(cfg, period=args.period, transform="none")
     model = generate_net(cfg, device=device).eval()
     model.load_state_dict(load_weights(args.ckpt, seg=True), strict=True)
+    broadcast_module(model, group)
     print(f"loaded {args.ckpt}")
+    mine = shard_indices(len(dataset), group)  # this rank's images
 
     batch_size = max(args.batch_size or BATCH, 1)
     n_flip = 2 if cfg.TEST_FLIP else 1
@@ -166,7 +180,7 @@ def main(argv=None):
     timer = Timer("Seg test started: ")
 
     def load_chunk(s):
-        return [dataset[i] for i in range(s, min(s + batch_size, len(dataset)))]
+        return [dataset[i] for i in mine[s:s + batch_size]]
 
     def post_image(sample, views):
         prob = fuse_views(views, (sample["row"], sample["col"]), n_views, cfg.MODEL_NUM_CLASSES)
@@ -186,9 +200,9 @@ def main(argv=None):
             ThreadPoolExecutor(max_workers=4) as post_pool:
         post_futs = []
         fut = prep_pool.submit(load_chunk, 0)
-        for start in range(0, len(dataset), batch_size):
+        for start in range(0, len(mine), batch_size):
             chunk = fut.result()
-            if start + batch_size < len(dataset):
+            if start + batch_size < len(mine):
                 fut = prep_pool.submit(load_chunk, start + batch_size)
             scale_outs = []
             for rate in cfg.TEST_MULTISCALE:
@@ -206,21 +220,23 @@ def main(argv=None):
             # back-pressure: at most ~2 chunks of post work in flight
             while len(post_futs) > 2 * batch_size:
                 post_futs.pop(0).result()
-            done = min(start + batch_size, len(dataset))
+            done = min(start + batch_size, len(mine))
             if done % 25 < batch_size:
-                timer.update_progress(done / len(dataset))
-                print(f"{done}/{len(dataset)}, fin: {timer.str_est_finish()}", flush=True)
+                timer.update_progress(done / len(mine))
+                print(f"{done}/{len(mine)}, fin: {timer.str_est_finish()}", flush=True)
         for f in post_futs:
             f.result()
+    sync(group)  # every rank's pngs are written
     elapsed = time.time() - timer.start
     print(f"{len(dataset)} images in {elapsed:.1f}s = {len(dataset) / elapsed:.2f} imgs/s "
           "end-to-end", flush=True)
     if args.period == "test":
         print("Test-period predictions saved (no local ground truth to eval)")
     else:
-        resultlog = dataset.do_python_eval(cfg.MODEL_NAME)
-        writelog(os.path.join(cfg.LOG_DIR, "logfile.txt"), resultlog,
-                 f"{args.exp} {args.period}")
+        resultlog = dataset.do_python_eval(cfg.MODEL_NAME, group)
+        if rank_of(group) == 0:
+            writelog(os.path.join(cfg.LOG_DIR, "logfile.txt"), resultlog,
+                     f"{args.exp} {args.period}")
     print("Test finished")
 
 

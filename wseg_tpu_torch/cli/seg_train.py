@@ -13,6 +13,13 @@ previous epoch's) and `..._itr<N>_all.pth` at the end, state_dicts with the
 reference's keys; with `--save_state` also `seg_train_state.pth` each epoch,
 which `--resume` with `--min_epoch` continues step for step. The run's stdout
 goes to `log/<exp>/train.log` as well.
+
+Data parallel under torchrun (`torchrun --nproc_per_node <gpus> -m
+wseg_tpu_torch.cli.seg_train ...`; NCCL, or gloo with `--device cpu`):
+`--batch_size` is the global batch, each rank trains on its rows of it, BN
+takes its moments over the global batch, and the run is the one-process
+run at that batch (parallel/mesh.py). Rank 0 alone writes the logs and the
+checkpoints; every rank reads `--resume`.
 """
 
 from __future__ import annotations
@@ -62,9 +69,10 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
+    from wseg_tpu_torch.parallel.mesh import joined
     from wseg_tpu_torch.seg.config import EXPERIMENTS
     from wseg_tpu_torch.utils.device import resolve_device
-    from wseg_tpu_torch.utils.logging import Logger
+    from wseg_tpu_torch.utils.logging import rank_logger
 
     cfg = EXPERIMENTS[args.exp].replace(DATA_ROOT=args.data_root)
     if args.pseudo_gt:
@@ -93,8 +101,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     os.makedirs(cfg.MODEL_SAVE_DIR, exist_ok=True)
-    with Logger(os.path.join(cfg.LOG_DIR, "train.log")):
-        _train(args, cfg, device)
+    with joined(device) as world, rank_logger(os.path.join(cfg.LOG_DIR, "train.log"), world):
+        _train(args, cfg, device, world)
 
 
 def weights_path(cfg, tag: str) -> str:
@@ -104,13 +112,16 @@ def weights_path(cfg, tag: str) -> str:
                         f"{cfg.MODEL_NAME}_{cfg.MODEL_BACKBONE}_{cfg.DATA_NAME}_{tag}.pth")
 
 
-def _train(args, cfg, device):
+def _train(args, cfg, device, world):
     import random
 
     import numpy as np
     import torch
 
     from wseg_tpu_torch.data.loader import DataLoader
+    from wseg_tpu_torch.parallel.mesh import (
+        broadcast_module, group_for_batch, rank_of, shard_of, sync,
+    )
     from wseg_tpu_torch.seg.dataset import generate_dataset
     from wseg_tpu_torch.seg.deeplab import generate_net
     from wseg_tpu_torch.train.optim import PolySGD, param_groups, seg_label_params
@@ -125,10 +136,15 @@ def _train(args, cfg, device):
     np.random.seed(args.seed)
     print(cfg)
 
+    group, trains = group_for_batch(cfg.TRAIN_BATCHES, world)
+    if not trains:
+        return
+    lead = rank_of(group) == 0  # writes the checkpoints and the scalar log
     dataset = generate_dataset(cfg, period="train", transform="weak", det_seed=args.seed)
     loader = DataLoader(dataset, cfg.TRAIN_BATCHES, num_workers=cfg.DATA_WORKERS,
                         seed=args.seed, pin_memory=device.type == "cuda", collate=collate,
-                        shuffle=cfg.TRAIN_SHUFFLE)
+                        shuffle=cfg.TRAIN_SHUFFLE,
+                        shard=shard_of(group))
 
     model = generate_net(cfg, device=device, generator=torch.Generator().manual_seed(args.seed))
     if cfg.MODEL_BACKBONE_WEIGHTS:
@@ -154,14 +170,15 @@ def _train(args, cfg, device):
                 f"--min_epoch {cfg.TRAIN_MINEPOCH} starts at iteration {itr}; pass the "
                 "min epoch that the file's save message named.")
         print(f"resumed full train state from {args.resume}")
+    broadcast_module(model, group)
     step_fn = make_seg_train_step(model, optimizer, generator=generator,
-                                  with_pred=cfg.TRAIN_TBLOG)
+                                  with_pred=cfg.TRAIN_TBLOG, group=group)
     if device.type == "cuda":
         # one autotune for the one crop shape, as aff_train: cuDNN's heuristic
         # made stage 2's f32 step 5.3x slower on an H100 (PERF.md)
         torch.backends.cudnn.benchmark = True
 
-    tblogger = ScalarWriter(cfg.LOG_DIR)
+    tblogger = ScalarWriter(cfg.LOG_DIR) if lead else None
     timer = Timer("Seg train started: ")
     max_epoch = max_itr * cfg.TRAIN_BATCHES // len(dataset) + 1
     done = False
@@ -179,9 +196,10 @@ def _train(args, cfg, device):
                 timer.update_progress(max(itr, 1) / max_itr)
                 print(f"itr:{itr}/{max_itr} loss:{loss:.4f} lr:{now_lr:.6f} "
                       f"fin:{timer.str_est_finish()}", flush=True)
-                tblogger.add_scalar("loss", loss, itr)
-                tblogger.add_scalar("lr", now_lr, itr)
-                if cfg.TRAIN_TBLOG:
+                if lead:
+                    tblogger.add_scalar("loss", loss, itr)
+                    tblogger.add_scalar("lr", now_lr, itr)
+                if lead and cfg.TRAIN_TBLOG:
                     # input / label / pred colormaps of the last sample (train.py:107-120)
                     from wseg_tpu_torch.utils.visualization import img_denorm, voc_label2colormap
 
@@ -195,13 +213,16 @@ def _train(args, cfg, device):
                 done = True
                 break
         ckpt = weights_path(cfg, f"epoch{epoch}")
-        save_weights(ckpt, model)
+        sync(group)
+        if lead:
+            save_weights(ckpt, model)
+            if os.path.exists(weights_path(cfg, f"epoch{epoch - 1}")):
+                os.remove(weights_path(cfg, f"epoch{epoch - 1}"))
         print(f"{ckpt} has been saved")
-        if os.path.exists(weights_path(cfg, f"epoch{epoch - 1}")):
-            os.remove(weights_path(cfg, f"epoch{epoch - 1}"))
         if args.save_state:
             st = os.path.join(cfg.MODEL_SAVE_DIR, "seg_train_state.pth")
-            save_train_state(st, model, optimizer, itr, generator)
+            if lead:
+                save_train_state(st, model, optimizer, itr, generator)
             print(f"epoch {epoch}: saved resumable state to {st} "
                   f"(continue with --resume <state> --min_epoch {epoch + 1})", flush=True)
         if args.stop_after_epoch and epoch + 1 >= args.stop_after_epoch:
@@ -210,7 +231,9 @@ def _train(args, cfg, device):
             return
 
     final = weights_path(cfg, f"itr{max_itr}_all")
-    save_weights(final, model)
+    sync(group)
+    if lead:
+        save_weights(final, model)
     print(f"{final} has been saved")
 
 

@@ -16,6 +16,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from wseg_tpu_torch.parallel.mesh import rows_of
+
 
 PREFETCH = 4  # batches in flight
 
@@ -29,12 +31,19 @@ def collate(samples):
 class DataLoader:
     """Batches of `batch_size` (the last partial batch is dropped), in a
     shuffled order or, with `shuffle=False`, in the dataset's, each the
-    dataset's items combined by `collate`, fetched `num_workers` at a time."""
+    dataset's items combined by `collate`, fetched `num_workers` at a time.
+
+    shard=(rank, world): every rank walks the same order of global batches
+    of `batch_size` (the same seed and epoch) and yields only its
+    contiguous rows of each (parallel/mesh.py:rows_of), so the ranks' rows
+    together are the one-process epoch, batch for batch."""
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 8, seed: int = 1,
-                 pin_memory: bool = False, collate=collate, shuffle: bool = True):
+                 pin_memory: bool = False, collate=collate, shuffle: bool = True,
+                 shard: tuple[int, int] | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rows = slice(None) if shard is None else rows_of(batch_size, *shard)
         self.shuffle = shuffle
         self.num_workers = num_workers
         self.seed = seed
@@ -68,7 +77,8 @@ class DataLoader:
             rng = (random.Random(f"{self.seed}:{self._epoch}") if self._epoch is not None
                    else self._rng)
             rng.shuffle(order)
-        batches = [order[i * self.batch_size:(i + 1) * self.batch_size] for i in range(len(self))]
+        batches = [order[i * self.batch_size:(i + 1) * self.batch_size][self.rows]
+                   for i in range(len(self))]
 
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             it = iter(batches)

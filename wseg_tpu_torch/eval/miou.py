@@ -81,11 +81,18 @@ def iou_from_confusion(conf: np.ndarray) -> np.ndarray:
 def do_python_eval(
     predict_folder: str, gt_folder: str, name_list, num_cls: int = 21,
     input_type: str = "png", threshold: float | None = 1.0,
-    printlog: bool = False, num_workers: int = 8,
+    printlog: bool = False, num_workers: int = 8, group=None,
 ) -> dict:
+    """Per-class IoU and mIoU of `name_list`. With a process `group`,
+    `name_list` is this rank's share and the confusion matrices are summed
+    over the ranks first, so every rank returns the whole list's result."""
     conf = confusion_matrix(
         predict_folder, gt_folder, name_list, num_cls, input_type, threshold, num_workers
     )
+    if group is not None:
+        from wseg_tpu_torch.parallel.mesh import all_reduce_array
+
+        conf = all_reduce_array(conf, group)
     iou = iou_from_confusion(conf)
     loglist = {CATEGORIES_WITH_BG[i]: iou[i] * 100 for i in range(num_cls)}
     miou = float(np.mean(iou))

@@ -24,6 +24,7 @@ import torch
 from wseg_tpu_torch.models.resnet38 import IMAGENET_MEAN, IMAGENET_STD
 from wseg_tpu_torch.ops.cam import fuse_msf_cams
 from wseg_tpu_torch.ops.resize import resize_bicubic, resize_bilinear_chain
+from wseg_tpu_torch.parallel.mesh import broadcast_module
 
 DEFAULT_SCALES = (0.5, 1.0, 1.5, 2.0)
 
@@ -83,15 +84,20 @@ class CamInferencer:
     bucket: pad H, W up to a multiple and pass per-sample valid sizes (the
     pad halo is kept out of every global interaction, so the result equals
     the exact-shape forward); None runs exact shapes. The model is used in
-    eval mode on its own device and dtype."""
+    eval mode on its own device and dtype.
+
+    group: data-parallel inference over a process group (parallel/mesh.py):
+    every rank's weights become rank 0's. Each rank then infers its own
+    images (the CLI gives it `shard_indices`' block of the list)."""
 
     def __init__(self, model: torch.nn.Module, scales=DEFAULT_SCALES,
-                 bucket: int | None = 64, max_view_px: int | None = None):
+                 bucket: int | None = 64, max_view_px: int | None = None, group=None):
         self.model = model.eval()
         self.scales = scales
         self.bucket = bucket
         self.max_view_px = MAX_VIEW_PX if max_view_px is None else max_view_px
         self.device = _model_device(model)
+        broadcast_module(model, group)
 
     def _forward(self, imgs: torch.Tensor, valid_hw: torch.Tensor | None = None):
         """Stride-8 PCM-refined fg CAM (N, 20, h8, w8) in float32."""

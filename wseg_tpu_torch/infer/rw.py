@@ -20,6 +20,7 @@ from wseg_tpu_torch.ops.pairs import (
     pair_index_tensors,
 )
 from wseg_tpu_torch.ops.random_walk import random_walk_refine
+from wseg_tpu_torch.parallel.mesh import broadcast_module
 
 # Per-dispatch pixel budget of the batched walk, the JAX package's values
 # (chosen there for a 16 GB TPU, wseg_tpu/infer/rw.py:20-32): 96 images at
@@ -38,11 +39,13 @@ class RandomWalkRefiner:
     equal to MAX_WALK_PX, is kept as given. `matrix_impl`: "scatter" (the
     reference's sparse to_dense) or "banded" (diagonal views), equal
     outputs. `walk_dtype`: None (float32) or torch.bfloat16 for the
-    squaring chain."""
+    squaring chain. `group`: data-parallel refinement over a process group
+    (parallel/mesh.py): every rank's weights become rank 0's; each rank
+    then refines its own images (the CLI gives it `shard_indices`' block)."""
 
     def __init__(self, model: torch.nn.Module, beta: int = 8, logt: int = 6, bucket: int = 64,
                  max_walk_px: int | None = None, matrix_impl: str = "scatter",
-                 walk_dtype: torch.dtype | None = None):
+                 walk_dtype: torch.dtype | None = None, group=None):
         if matrix_impl not in MATRIX_IMPLS:
             raise ValueError(f"matrix_impl must be one of {MATRIX_IMPLS}, got {matrix_impl!r}")
         self.model = model.eval()
@@ -56,6 +59,7 @@ class RandomWalkRefiner:
         self.max_walk_px = max_walk_px
         self.matrix_impl = matrix_impl
         self.walk_dtype = walk_dtype
+        broadcast_module(model, group)
 
     def padded_size(self, h: int, w: int) -> tuple[int, int]:
         mult = self.bucket or 8

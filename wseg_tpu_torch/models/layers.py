@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wseg_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 class BatchNorm2d(nn.Module):
     """BatchNorm with the reference's state_dict keys (`weight`, `bias`,
@@ -35,7 +37,14 @@ class BatchNorm2d(nn.Module):
     channel (N * H * W = 1, ASPP's global branch at batch 1); there the JAX
     package's arithmetic runs: the batch variance E[x^2] - E[x]^2 is 0, the
     output is `bias` up to rounding, and the stored variance takes
-    var * n / max(n - 1, 1)."""
+    var * n / max(n - 1, 1).
+
+    With `group` set (parallel/mesh.py:bind), train mode takes the moments
+    over the group's global batch: one differentiable all_reduce of the
+    per-channel (sum x, sum x^2, count), then the JAX package's arithmetic
+    with the global n (layers.py:49-59 there: var = E[x^2] - E[x]^2, stored
+    var * n / max(n - 1, 1)). The input gradient flows through every rank's
+    moments, as it does through the one-process batch statistics."""
 
     def __init__(self, features: int, eps: float = 1e-5, frozen: bool = True,
                  momentum: float = 0.1):
@@ -43,6 +52,7 @@ class BatchNorm2d(nn.Module):
         self.eps = eps
         self.frozen = frozen
         self.momentum = momentum
+        self.group = None  # a process group: global-batch moments in train mode
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -53,19 +63,26 @@ class BatchNorm2d(nn.Module):
             scale = self.weight * torch.rsqrt(self.running_var + self.eps)
             shift = self.bias - self.running_mean * scale
             return x * scale[:, None, None] + shift[:, None, None]
-        if x.shape[0] * x.shape[2] * x.shape[3] == 1:
-            return self._one_value(x)
+        if self.group is not None or x.shape[0] * x.shape[2] * x.shape[3] == 1:
+            return self._moments(x)
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                             training=True, momentum=self.momentum, eps=self.eps)
 
-    def _one_value(self, x: torch.Tensor) -> torch.Tensor:
-        """Train-mode BN of one value per channel (layers.py:52-62 of the JAX
-        package at n = 1)."""
-        mean = x.mean(dim=(0, 2, 3))
-        var = x.square().mean(dim=(0, 2, 3)) - mean.square()
+    def _moments(self, x: torch.Tensor) -> torch.Tensor:
+        """Train-mode BN with the JAX package's arithmetic (layers.py:49-59
+        there), over the group's global batch when `group` is set."""
+        c = x.shape[1]
+        sums = torch.cat([x.sum(dim=(0, 2, 3)), x.square().sum(dim=(0, 2, 3)),
+                          x.new_full((1,), x.shape[0] * x.shape[2] * x.shape[3])])
+        if self.group is not None:
+            sums = all_reduce_sum(sums, self.group)
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        var = sums[c:2 * c] / n - mean.square()
         with torch.no_grad():
             self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
+            self.running_var.mul_(1 - self.momentum).add_(
+                self.momentum * var * n / (n - 1).clamp_min(1))
         scale = self.weight * torch.rsqrt(var + self.eps)
         shift = self.bias - mean * scale
         return x * scale[:, None, None] + shift[:, None, None]
@@ -76,12 +93,16 @@ class Dropout(nn.Module):
     0)`, deeplab.py:150-153); the identity in eval mode. With `generator` set
     (the training steps set it), the keep mask is drawn from that generator,
     so a run is reproducible from its seed; without, from torch's global
-    stream. `rate = 0` keeps everything."""
+    stream. `rate = 0` keeps everything. With `shard = (rank, world)` (set
+    by parallel/mesh.py:bind) the mask is drawn at the global batch's shape,
+    world times this rank's rows, and the rank keeps its rows: every rank's
+    generator then advances as the one process's does."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: torch.Generator | None = None
+        self.shard: tuple[int, int] | None = None
 
     def mask_shape(self, x: torch.Tensor) -> tuple:
         return tuple(x.shape)
@@ -89,7 +110,14 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        u = torch.rand(self.mask_shape(x), generator=self.generator, device=x.device)
+        shape = self.mask_shape(x)
+        if self.shard is None:
+            u = torch.rand(shape, generator=self.generator, device=x.device)
+        else:
+            rank, world = self.shard
+            n = shape[0]
+            u = torch.rand((n * world, *shape[1:]), generator=self.generator,
+                           device=x.device)[rank * n:(rank + 1) * n]
         return x * ((u >= self.rate).to(x.dtype) / (1.0 - self.rate))
 
 

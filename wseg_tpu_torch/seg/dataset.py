@@ -200,11 +200,16 @@ class VOCSegDataset:
             write_png(os.path.join(folder, "%s.png" % sample["name"]),
                       sample["predict"].astype(np.uint8))
 
-    def do_python_eval(self, model_id: str) -> dict:
+    def do_python_eval(self, model_id: str, group=None) -> dict:
+        """mIoU of the saved predictions; with a process `group`, each rank
+        reads its block of the list (parallel/mesh.py:shard_indices) and the
+        confusion matrices are summed over the ranks."""
         from wseg_tpu_torch.eval.miou import do_python_eval
+        from wseg_tpu_torch.parallel.mesh import shard_indices
 
         folder = os.path.join(self.rst_dir, f"{model_id}_{self.period}")
-        return do_python_eval(folder, self.seg_dir, self.name_list, printlog=True)
+        names = [self.name_list[i] for i in shard_indices(len(self.name_list), group)]
+        return do_python_eval(folder, self.seg_dir, names, printlog=True, group=group)
 
 
 def generate_dataset(cfg: SegConfig, period: str, transform: str = "none", **kw):

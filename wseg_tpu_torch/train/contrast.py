@@ -7,6 +7,13 @@ prototype estimation, the three InfoNCE terms, the backward and the
 optimizer update. Dropout on both views and the uniform keys of the
 intra-view NCE come from one explicit `torch.Generator`, so a run is a
 function of its seed and a resumed run of the generator's saved state.
+
+Data parallel (a process group, parallel/mesh.py): every rank gathers the
+model outputs of the global batch and computes the identical global loss
+(prototypes, pseudo-labels, the class ranks and `num_present` over the
+global batch's pixels; the intra-view keys drawn at the global M); the
+parameter gradients are then averaged over the ranks, which makes them the
+one-process gradient (the mesh module's docstring says why).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from wseg_tpu_torch.ops.losses import (
     normalize_cam_for_prototypes,
 )
 from wseg_tpu_torch.ops.resize import resize_bilinear
+from wseg_tpu_torch.parallel.mesh import all_gather_rows, all_reduce_grads_, bind, size_of
 from wseg_tpu_torch.train.optim import label_params
 
 
@@ -37,13 +45,23 @@ def _l2_rows(f: torch.Tensor) -> torch.Tensor:
 
 def contrast_losses(outputs1, outputs2, label21: torch.Tensor,
                     us: tuple[torch.Tensor, torch.Tensor], bg_threshold: float = 0.20,
-                    low_res: int = 128) -> dict[str, torch.Tensor]:
+                    low_res: int = 128, group=None) -> dict[str, torch.Tensor]:
     """All stage-1 losses from the two views' outputs.
 
     outputs*: (cam, cam_rv, f_proj, cam_rv_down) NCHW model outputs of the
     crop and of its low_res downscale; label21 (N, 21) multi-hot with bg = 1
     (contrast_train.py:138-140); us: the uniform (M,) keys of the two views'
-    intra-view NCE (M = N * (low_res // 8)^2 pixels each)."""
+    intra-view NCE (M = N * (low_res // 8)^2 pixels each).
+
+    With a process `group`, the arguments are this rank's rows (`us` is the
+    global batch's) and every rank returns the global batch's losses: the
+    outputs and labels are gathered first. Its backward then gives this
+    rank's outputs W times their one-process gradient (W ranks' identical
+    losses); the train step averages the parameter gradients."""
+    if group is not None:
+        outputs1, outputs2 = (tuple(all_gather_rows(t, group) for t in outs)
+                              for outs in (outputs1, outputs2))
+        label21 = all_gather_rows(label21, group)
     cam1, cam_rv1, f_proj1, cam_rv1_down = outputs1
     cam2, cam_rv2, f_proj2, cam_rv2_down = outputs2
     lbl = label21[:, :, None, None]
@@ -123,8 +141,14 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float):
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     bg_threshold: float = 0.20, low_res: int = 128,
                     compute_dtype: torch.dtype | None = None, grad_clip: float = 0.0,
-                    generator: torch.Generator | None = None):
+                    generator: torch.Generator | None = None, group=None):
     """Build `step(img (N, 3, H, W), label (N, 20), us=None) -> metrics`.
+
+    With a process `group` (parallel/mesh.py), `img` and `label` are this
+    rank's rows of the global batch and the step is the one-process step at
+    that batch: global losses, dropout and keys drawn at the global shape,
+    the gradients averaged over the ranks before clipping. `us` is then the
+    global batch's keys.
 
     The step runs the model in training mode (dropout on, the plain
     differentiable PCM; BN is frozen either way), backpropagates the total
@@ -154,6 +178,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     for m in model.modules():
         if isinstance(m, Dropout2d):
             m.generator = generator
+    bind(model, group)
     labels = label_params(model)
     for name, p in model.named_parameters():
         if labels[name] == "frozen":
@@ -169,7 +194,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         return tuple(o.float() for o in out)
 
     def step(img: torch.Tensor, label: torch.Tensor, us=None) -> dict[str, torch.Tensor]:
-        n = img.shape[0]
+        n = img.shape[0] * size_of(group)  # the global batch
         label = label.to(device=img.device, dtype=torch.float32)
         label21 = torch.cat([torch.ones_like(label[:, :1]), label], dim=1)
         img2 = resize_bilinear(img, (low_res, low_res), align_corners=True)
@@ -180,9 +205,10 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             m2 = n * out2[2].shape[2] * out2[2].shape[3]
             us = (torch.rand(m1, generator=generator, device=img.device),
                   torch.rand(m2, generator=generator, device=img.device))
-        metrics = contrast_losses(out1, out2, label21, us, bg_threshold, low_res)
+        metrics = contrast_losses(out1, out2, label21, us, bg_threshold, low_res, group)
         optimizer.zero_grad(set_to_none=True)
         metrics["loss"].backward()
+        all_reduce_grads_(model.parameters(), group)
         if grad_clip > 0:
             clip_by_global_norm_([p.grad for p in model.parameters() if p.grad is not None],
                                  grad_clip)

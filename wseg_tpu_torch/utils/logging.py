@@ -1,10 +1,12 @@
-"""The stdout tee, meters, a progress timer, a scalar and image event writer
-and the eval log writer (the parts of wseg_tpu/utils/logging.py that the
-ported CLIs use; reference tool/pyutils.py and eval.py:89-106). Standard
-library only, but numpy and PIL inside `add_image`."""
+"""The stdout tee (on rank 0 of a data-parallel run), meters, a progress
+timer, a scalar and image event writer and the eval log writer (the parts
+of wseg_tpu/utils/logging.py that the ported CLIs use; reference
+tool/pyutils.py and eval.py:89-106). Standard library only, but numpy and
+PIL inside `add_image`."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -37,6 +39,19 @@ class Logger:
     def flush(self):
         self.terminal.flush()
         self.log.flush()
+
+
+@contextlib.contextmanager
+def rank_logger(outfile: str | None, group=None):
+    """`Logger(outfile)` (stdout as it is if `outfile` is None) on rank 0 of
+    a process group or without one; on the other ranks stdout goes nowhere
+    while the block runs, so a data-parallel run prints and logs once."""
+    if group is None or group.rank() == 0:
+        with Logger(outfile) if outfile else contextlib.nullcontext() as log:
+            yield log
+    else:
+        with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+            yield None
 
 
 class AverageMeter:

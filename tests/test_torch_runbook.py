@@ -1,6 +1,7 @@
 """The port's runbook pieces on the CPU: make_cls_labels against the JAX
 CLI's output, the reproduce runbook's stage chain (its stage runner replaced
-by a recorder), the stdout tee and contrast_train's --profile_dir trace."""
+by a recorder), the stdout tee, and the --profile_dir traces of contrast_train
+and contrast_infer."""
 
 import json
 import os
@@ -112,7 +113,7 @@ def test_logger_tees_stdout_to_a_file(tmp_path, capsys):
 
 def test_contrast_train_profile_dir_traces_steps_10_to_14(tmp_path):
     """A 16-step CPU run with --profile_dir writes one Chrome trace holding
-    the five train_step spans of steps 10-14."""
+    the five wseg.train.step spans of steps 10-14."""
     from wseg_tpu_torch.cli import contrast_train
 
     root, train_list = _make_voc(str(tmp_path / "VOC2012"), n=16, size=(40, 32))
@@ -130,4 +131,39 @@ def test_contrast_train_profile_dir_traces_steps_10_to_14(tmp_path):
     traces = os.listdir(prof)
     assert len(traces) == 1 and traces[0].endswith(".json")
     events = json.loads((prof / traces[0]).read_text())["traceEvents"]
-    assert sum(e.get("name") == "train_step" for e in events) == 5
+    assert sum(e.get("name") == "wseg.train.step" for e in events) == 5
+
+
+def test_contrast_infer_profile_dir_traces_batches_2_to_4(tmp_path, capsys):
+    """A 5-image CPU run, one image a batch, with --profile_dir writes one
+    Chrome trace holding three wseg.cam.batch ranges, each holding its views'
+    cam.* and model.* ranges, and prints the traced counters."""
+    import torch
+
+    from wseg_tpu_torch.cli import contrast_infer
+    from wseg_tpu_torch.models import build_model
+    from wseg_tpu_torch.utils.checkpoint import save_weights
+
+    root, infer_list = _make_voc(str(tmp_path / "VOC2012"), n=5, size=(24, 16))
+    weights = str(tmp_path / "c.pth")
+    save_weights(weights, build_model("contrast", device="cpu",
+                                      generator=torch.Generator().manual_seed(1)))
+    prof = tmp_path / "prof"
+    contrast_infer.main([
+        "--device", "cpu", "--weights", weights, "--infer_list", infer_list,
+        "--voc12_root", root, "--bucket", "16", "--profile_dir", str(prof)])
+    traces = os.listdir(prof)
+    assert len(traces) == 1 and traces[0].endswith(".json")
+    events = [e for e in json.loads((prof / traces[0]).read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    batches = [e for e in events if e["name"] == "wseg.cam.batch"]
+    assert len(batches) == 3
+    for b in batches:
+        inside = [e["name"] for e in events
+                  if b["ts"] <= e["ts"] and e["ts"] + e["dur"] <= b["ts"] + b["dur"]]
+        for name, n in [("cam.assemble", 4), ("cam.h2d", 4), ("cam.forward", 4),
+                        ("model.trunk", 4), ("model.pcm", 4), ("cam.upsample", 4),
+                        ("cam.fuse", 1)]:
+            assert inside.count("wseg." + name) == n, (name, inside)
+    out = capsys.readouterr().out
+    assert "counters: cam.valid_px " in out and "cam.view_px " in out

@@ -10,6 +10,9 @@ Runs on the GPU unless `--device cpu`.
     python -m wseg_tpu_torch.cli.contrast_infer --weights W.pth|W.ckpt \\
         --infer_list voc12/train.txt --voc12_root VOC2012 --out_cam out_cam
 
+`--profile_dir` writes a torch.profiler Chrome trace of the 2nd-4th batch
+(images, at batch size 0 or 1) and prints the traced counters.
+
 Under torchrun (`torchrun --nproc_per_node <gpus> -m
 wseg_tpu_torch.cli.contrast_infer ...`) each rank infers and writes its own
 contiguous block of the list, every image on exactly one rank.
@@ -18,6 +21,7 @@ contiguous block of the list, every image on exactly one rank.
 from __future__ import annotations
 
 import argparse
+import contextlib
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -45,6 +49,8 @@ def main(argv=None):
     parser.add_argument("--batch_size", default=0, type=int,
                         help="images per bucketed batch (0 or 1 = one image at a time)")
     parser.add_argument("--device", default="cuda", type=str)
+    parser.add_argument("--profile_dir", default="", type=str,
+                        help="write a torch.profiler Chrome trace of batches 2-4 here")
     args = parser.parse_args(argv)
 
     from wseg_tpu_torch.infer.crf_post import check_backend
@@ -69,9 +75,10 @@ def _infer(args, device, group):
     from wseg_tpu_torch.infer.cam import CamInferencer, save_cam_dict, save_cam_pred
     from wseg_tpu_torch.infer.crf_post import crf_from_cam_dict
     from wseg_tpu_torch.models import build_model
-    from wseg_tpu_torch.parallel.mesh import shard_indices
+    from wseg_tpu_torch.parallel.mesh import rank_of, shard_indices
     from wseg_tpu_torch.utils.checkpoint import load_weights
     from wseg_tpu_torch.utils.logging import Timer
+    from wseg_tpu_torch.utils.profiling import trace
 
     model = build_model(args.network, device=device)
     if args.crf_backend == "tpu":
@@ -113,12 +120,18 @@ def _infer(args, device, group):
     # its own pool (it releases the GIL too); the tpu CRF's calls serialise on
     # the device, so one thread overlaps its host side (padding, the png)
     crf_workers = 1 if args.crf_backend == "tpu" else max(args.num_workers, 1)
+    profiler = contextlib.ExitStack()  # the trace of batches 1-3, closed by batch 4 or the end
     with ThreadPoolExecutor(max_workers=4) as pool, \
-            ThreadPoolExecutor(max_workers=crf_workers) as crf_pool:
+            ThreadPoolExecutor(max_workers=crf_workers) as crf_pool, profiler:
         window = max(4, batch_size)
         pending = deque(pool.submit(prepare, i) for i in range(min(window, len(mine))))
-        done = 0
+        done = n_batches = 0
         while done < len(mine):
+            if args.profile_dir and rank_of(group) == 0 and n_batches == 1:
+                profiler.enter_context(trace(args.profile_dir))
+            if n_batches == 4:
+                profiler.close()
+            n_batches += 1
             chunk = []
             for _ in range(min(batch_size, len(mine) - done)):
                 chunk.append(pending.popleft().result())

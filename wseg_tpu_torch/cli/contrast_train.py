@@ -115,7 +115,7 @@ def _train(args, device, world):
         broadcast_module, group_for_batch, rank_of, shard_of, sync,
     )
     from wseg_tpu_torch.utils.logging import AverageMeter, ScalarWriter, Timer
-    from wseg_tpu_torch.utils.profiling import annotate, trace
+    from wseg_tpu_torch.utils.profiling import trace
 
     random.seed(args.seed)  # host-side augmentation without det_seed
     np.random.seed(args.seed)
@@ -176,8 +176,7 @@ def _train(args, device, world):
                 profiler.close()
             imgs = torch.as_tensor(imgs).to(device, non_blocking=True)
             labels = torch.as_tensor(labels).to(device, non_blocking=True)
-            with annotate("train_step"):
-                metrics = step_fn(imgs.permute(0, 3, 1, 2), labels)  # NHWC -> NCHW view
+            metrics = step_fn(imgs.permute(0, 3, 1, 2), labels)  # NHWC -> NCHW view
             global_step += 1
 
             pending.append(metrics)

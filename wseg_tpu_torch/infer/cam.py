@@ -25,6 +25,7 @@ from wseg_tpu_torch.models.resnet38 import IMAGENET_MEAN, IMAGENET_STD
 from wseg_tpu_torch.ops.cam import fuse_msf_cams
 from wseg_tpu_torch.ops.resize import resize_bicubic, resize_bilinear_chain
 from wseg_tpu_torch.parallel.mesh import broadcast_module
+from wseg_tpu_torch.utils.profiling import count, span
 
 DEFAULT_SCALES = (0.5, 1.0, 1.5, 2.0)
 
@@ -105,48 +106,64 @@ class CamInferencer:
         return cam_rv_down[:, 1:].float()
 
     def _fuse(self, total: torch.Tensor, label) -> np.ndarray:
-        label = torch.as_tensor(np.asarray(label), dtype=torch.float32, device=self.device)
-        return fuse_msf_cams(total * label[:, None, None]).cpu().numpy()
+        with span("cam.fuse"):
+            label = torch.as_tensor(np.asarray(label), dtype=torch.float32, device=self.device)
+            return fuse_msf_cams(total * label[:, None, None]).cpu().numpy()
 
     @torch.inference_mode()
     def infer_one_device(self, img_uint8: np.ndarray, label: np.ndarray) -> np.ndarray:
         """The whole per-image pipeline on the device: uint8 (H, W, 3) in,
         PIL-equivalent bicubic view scaling, normalization, both flips, all
         scales and the fusion. Returns the fused fg CAM (20, H, W)."""
-        h, w = img_uint8.shape[:2]
-        dev = self.device
-        mean = torch.tensor(IMAGENET_MEAN, device=dev)[:, None, None] * 255.0
-        std = torch.tensor(IMAGENET_STD, device=dev)[:, None, None] * 255.0
-        base = torch.as_tensor(np.asarray(img_uint8)).to(dev).permute(2, 0, 1).float()
-        total = torch.zeros((20, h, w), dtype=torch.float32, device=dev)
-        for s in self.scales:
-            th, tw = round(h * s), round(w * s)
-            view = (resize_bicubic(base, (th, tw)) - mean) / std
-            pair = _to_input(torch.stack([view, view.flip(-1)]), self.model)
-            cam = resize_bilinear_chain(self._forward(pair), (th, tw), (h, w))
-            total += cam[0] + cam[1].flip(-1)
-        return self._fuse(total, label)
+        with span("cam.batch"):
+            h, w = img_uint8.shape[:2]
+            dev = self.device
+            mean = torch.tensor(IMAGENET_MEAN, device=dev)[:, None, None] * 255.0
+            std = torch.tensor(IMAGENET_STD, device=dev)[:, None, None] * 255.0
+            with span("cam.h2d"):
+                base = torch.as_tensor(np.asarray(img_uint8)).to(dev).permute(2, 0, 1).float()
+            total = torch.zeros((20, h, w), dtype=torch.float32, device=dev)
+            for s in self.scales:
+                th, tw = round(h * s), round(w * s)
+                view = (resize_bicubic(base, (th, tw)) - mean) / std
+                pair = _to_input(torch.stack([view, view.flip(-1)]), self.model)
+                count("cam.view_px", 2 * th * tw)
+                count("cam.valid_px", 2 * th * tw)
+                with span("cam.forward"):
+                    cam = self._forward(pair)
+                with span("cam.upsample"):
+                    cam = resize_bilinear_chain(cam, (th, tw), (h, w))
+                    total += cam[0] + cam[1].flip(-1)
+            return self._fuse(total, label)
 
     @torch.inference_mode()
     def infer_one(self, views: list[np.ndarray], label: np.ndarray,
                   orig_hw: tuple[int, int]) -> np.ndarray:
         """views: 8 HWC float32 arrays ([s, s_flip] per scale, normalized);
         label: (20,). Returns the fused fg CAM (20, H, W)."""
-        h0, w0 = orig_hw
-        total = torch.zeros((20, h0, w0), dtype=torch.float32, device=self.device)
-        for si in range(len(views) // 2):
-            pair = np.stack([views[2 * si], views[2 * si + 1]])  # (2, h, w, 3)
-            h, w = pair.shape[1:3]
-            if self.bucket:
-                ph, pw = _round_up(h, self.bucket), _round_up(w, self.bucket)
-                pair = np.pad(pair, ((0, 0), (0, ph - h), (0, pw - w), (0, 0)))
-                valid = torch.tensor([[h, w], [h, w]], device=self.device)
-                cam = self._forward(_to_input(_nchw(pair), self.model), valid)
-            else:
-                cam = self._forward(_to_input(_nchw(pair), self.model))
-            cam = resize_bilinear_chain(cam[:, :, : _ceil8(h), : _ceil8(w)], (h, w), (h0, w0))
-            total += cam[0] + cam[1].flip(-1)
-        return self._fuse(total, label)
+        with span("cam.batch"):
+            h0, w0 = orig_hw
+            total = torch.zeros((20, h0, w0), dtype=torch.float32, device=self.device)
+            for si in range(len(views) // 2):
+                with span("cam.assemble"):
+                    pair = np.stack([views[2 * si], views[2 * si + 1]])  # (2, h, w, 3)
+                    h, w = pair.shape[1:3]
+                    if self.bucket:
+                        ph, pw = _round_up(h, self.bucket), _round_up(w, self.bucket)
+                        pair = np.pad(pair, ((0, 0), (0, ph - h), (0, pw - w), (0, 0)))
+                count("cam.view_px", pair.shape[0] * pair.shape[1] * pair.shape[2])
+                count("cam.valid_px", 2 * h * w)
+                with span("cam.h2d"):
+                    x = _to_input(_nchw(pair), self.model)
+                    valid = (torch.tensor([[h, w], [h, w]], device=self.device)
+                             if self.bucket else None)
+                with span("cam.forward"):
+                    cam = self._forward(x, valid)
+                with span("cam.upsample"):
+                    cam = resize_bilinear_chain(cam[:, :, : _ceil8(h), : _ceil8(w)], (h, w),
+                                                (h0, w0))
+                    total += cam[0] + cam[1].flip(-1)
+            return self._fuse(total, label)
 
     @torch.inference_mode()
     def infer_batch(self, items: list[tuple[list[np.ndarray], np.ndarray, tuple[int, int]]]
@@ -159,35 +176,42 @@ class CamInferencer:
         """
         if not items:
             return []
-        bucket = self.bucket or 8
-        b = len(items)
-        totals = [torch.zeros((20, *it[2]), dtype=torch.float32, device=self.device)
-                  for it in items]
-        for si in range(len(self.scales)):
-            pairs = [np.stack([it[0][2 * si], it[0][2 * si + 1]]) for it in items]
-            hs = [p.shape[1] for p in pairs]
-            ws = [p.shape[2] for p in pairs]
-            ph, pw = _round_up(max(hs), bucket), _round_up(max(ws), bucket)
-            batch = np.zeros((b * 2, ph, pw, 3), np.float32)
-            valid = np.zeros((b * 2, 2), np.int64)
-            for i, p in enumerate(pairs):
-                batch[2 * i : 2 * i + 2, : hs[i], : ws[i]] = p
-                valid[2 * i : 2 * i + 2] = (hs[i], ws[i])
-            n_chunks = _view_chunks(b, ph, pw, self.max_view_px)
-            m = b // n_chunks
-            cam = torch.cat([
-                self._forward(
-                    _to_input(_nchw(batch[2 * ci * m : 2 * (ci + 1) * m]), self.model),
-                    torch.as_tensor(valid[2 * ci * m : 2 * (ci + 1) * m], device=self.device),
-                )
-                for ci in range(n_chunks)
-            ])
-            for i in range(b):
-                h, w, (h0, w0) = hs[i], ws[i], items[i][2]
-                cv = cam[2 * i : 2 * i + 2, :, : _ceil8(h), : _ceil8(w)]
-                up = resize_bilinear_chain(cv, (h, w), (h0, w0))
-                totals[i] += up[0] + up[1].flip(-1)
-        return [self._fuse(t, it[1]) for t, it in zip(totals, items)]
+        with span("cam.batch"):
+            bucket = self.bucket or 8
+            b = len(items)
+            totals = [torch.zeros((20, *it[2]), dtype=torch.float32, device=self.device)
+                      for it in items]
+            for si in range(len(self.scales)):
+                with span("cam.assemble"):
+                    pairs = [np.stack([it[0][2 * si], it[0][2 * si + 1]]) for it in items]
+                    hs = [p.shape[1] for p in pairs]
+                    ws = [p.shape[2] for p in pairs]
+                    ph, pw = _round_up(max(hs), bucket), _round_up(max(ws), bucket)
+                    batch = np.zeros((b * 2, ph, pw, 3), np.float32)
+                    valid = np.zeros((b * 2, 2), np.int64)
+                    for i, p in enumerate(pairs):
+                        batch[2 * i : 2 * i + 2, : hs[i], : ws[i]] = p
+                        valid[2 * i : 2 * i + 2] = (hs[i], ws[i])
+                n_chunks = _view_chunks(b, ph, pw, self.max_view_px)
+                m = b // n_chunks
+                cams = []
+                for ci in range(n_chunks):
+                    lo, hi = 2 * ci * m, 2 * (ci + 1) * m
+                    count("cam.view_px", (hi - lo) * ph * pw)
+                    count("cam.valid_px", int(valid[lo:hi].prod(1).sum()))
+                    with span("cam.h2d"):
+                        x = _to_input(_nchw(batch[lo:hi]), self.model)
+                        v = torch.as_tensor(valid[lo:hi], device=self.device)
+                    with span("cam.forward"):
+                        cams.append(self._forward(x, v))
+                cam = torch.cat(cams)
+                with span("cam.upsample"):
+                    for i in range(b):
+                        h, w, (h0, w0) = hs[i], ws[i], items[i][2]
+                        cv = cam[2 * i : 2 * i + 2, :, : _ceil8(h), : _ceil8(w)]
+                        up = resize_bilinear_chain(cv, (h, w), (h0, w0))
+                        totals[i] += up[0] + up[1].flip(-1)
+            return [self._fuse(t, it[1]) for t, it in zip(totals, items)]
 
 
 def make_fused_msf_fn(model: torch.nn.Module, orig_hw: tuple[int, int],

@@ -22,6 +22,7 @@ from wseg_tpu_torch.models.resnet38 import ResNet38, valid_mask
 from wseg_tpu_torch.ops.cam import cam_bg_complete
 from wseg_tpu_torch.ops.pcm import pcm
 from wseg_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_valid
+from wseg_tpu_torch.utils.profiling import span
 from wseg_tpu_torch.utils.registry import MODELS
 
 
@@ -59,7 +60,8 @@ class ContrastNet(ResNet38):
         valid stride-8 output equals its exact-shape forward. Needs
         raw_cam=True."""
         h_in, w_in = x.shape[-2:]
-        d = super().forward(x, valid_hw)
+        with span("model.trunk"):
+            d = super().forward(x, valid_hw)
         fea = self.dropout7(d["conv6"])
         cam = self.fc8(fea)
         h, w = cam.shape[-2:]
@@ -81,10 +83,11 @@ class ContrastNet(ResNet38):
             x_s = resize_bilinear_valid(x, (h, w), valid_hw, (valid_hw + 7) // 8)
         f = self.f9(torch.cat([x_s, f8_3, f8_4], dim=1))
 
-        if self.training:
-            cam_rv_down = pcm(cam_d_norm, f, mask=m8)
-        else:
-            cam_rv_down = pcm_fused_nchw(cam_d_norm, f, mask=m8)
+        with span("model.pcm"):
+            if self.training:
+                cam_rv_down = pcm(cam_d_norm, f, mask=m8)
+            else:
+                cam_rv_down = pcm_fused_nchw(cam_d_norm, f, mask=m8)
         if raw_cam:
             return cam, cam_rv_down
         f_proj = torch.relu(self.fc_proj(fea))

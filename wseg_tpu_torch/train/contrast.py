@@ -37,6 +37,7 @@ from wseg_tpu_torch.ops.losses import (
 from wseg_tpu_torch.ops.resize import resize_bilinear
 from wseg_tpu_torch.parallel.mesh import all_gather_rows, all_reduce_grads_, bind, size_of
 from wseg_tpu_torch.train.optim import label_params
+from wseg_tpu_torch.utils.profiling import span
 
 
 def _l2_rows(f: torch.Tensor) -> torch.Tensor:
@@ -194,25 +195,30 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         return tuple(o.float() for o in out)
 
     def step(img: torch.Tensor, label: torch.Tensor, us=None) -> dict[str, torch.Tensor]:
-        n = img.shape[0] * size_of(group)  # the global batch
-        label = label.to(device=img.device, dtype=torch.float32)
-        label21 = torch.cat([torch.ones_like(label[:, :1]), label], dim=1)
-        img2 = resize_bilinear(img, (low_res, low_res), align_corners=True)
-        out1 = forward(img)
-        out2 = forward(img2)
-        if us is None:
-            m1 = n * (low_res // 8) ** 2
-            m2 = n * out2[2].shape[2] * out2[2].shape[3]
-            us = (torch.rand(m1, generator=generator, device=img.device),
-                  torch.rand(m2, generator=generator, device=img.device))
-        metrics = contrast_losses(out1, out2, label21, us, bg_threshold, low_res, group)
-        optimizer.zero_grad(set_to_none=True)
-        metrics["loss"].backward()
-        all_reduce_grads_(model.parameters(), group)
-        if grad_clip > 0:
-            clip_by_global_norm_([p.grad for p in model.parameters() if p.grad is not None],
-                                 grad_clip)
-        optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        with span("train.step"):
+            n = img.shape[0] * size_of(group)  # the global batch
+            label = label.to(device=img.device, dtype=torch.float32)
+            label21 = torch.cat([torch.ones_like(label[:, :1]), label], dim=1)
+            with span("train.forward"):
+                img2 = resize_bilinear(img, (low_res, low_res), align_corners=True)
+                out1 = forward(img)
+                out2 = forward(img2)
+            if us is None:
+                m1 = n * (low_res // 8) ** 2
+                m2 = n * out2[2].shape[2] * out2[2].shape[3]
+                us = (torch.rand(m1, generator=generator, device=img.device),
+                      torch.rand(m2, generator=generator, device=img.device))
+            with span("train.losses"):
+                metrics = contrast_losses(out1, out2, label21, us, bg_threshold, low_res, group)
+            with span("train.backward"):
+                optimizer.zero_grad(set_to_none=True)
+                metrics["loss"].backward()
+                all_reduce_grads_(model.parameters(), group)
+                if grad_clip > 0:
+                    clip_by_global_norm_(
+                        [p.grad for p in model.parameters() if p.grad is not None], grad_clip)
+            with span("train.optimizer"):
+                optimizer.step()
+            return {k: v.detach() for k, v in metrics.items()}
 
     return step

@@ -13,8 +13,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      tail with C = 23 and at the main path's own shape, where it is timed
      beside the FMA kernel on the same inputs;
   4. slice parity: the full-width ContrastNet through make_fused_msf_fn at
-     64x96 on the card (kernel, f32, TF32 off) against the same weights on the
-     CPU (plain PCM);
+     64x96 on the card (kernels, f32, TF32 off) against the same weights on
+     the CPU (plain): fc8's and f9's outputs, then the fused CAM against the
+     CPU's run from the card's fc8 and f9 outputs;
   5. CAM inference at working size: make_fused_msf_fn at 384x512, 4 scales x
      flip, batch 8, bf16 trunk and f32 fusion, under torch.inference_mode();
      then CamInferencer.infer_batch on two images of different sizes (the
@@ -106,12 +107,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
      CLI's dtype): its cams equal the ones without a group, and K1 is held
      against its plain twin on the inputs this path gave it;
      parallel/spatial.py:pcm_spatial against ops/pcm.py.
-Stages 2 and 3 run no kernel of the port (stage 2's pair affinities, dense
-matrix and walk are plain PyTorch, as they are plain XLA in the JAX package;
-stage 3's convs are cuDNN's, as the JAX nets' are XLA's; the accelerator CRF
-is torch ops, as it is XLA ops there); phases 16, 17, 19 and 22 check
-that neither K1 nor K2 launched. K1's row counts its launches on phases 5,
-20, 21 and 23, by path in `launches_by_path`.
+ 24. K2's f32 variant on the trunk's channels_last shapes (b6 / b7 at crop
+     448 and the 128 view, batch 8, and between; at batch 1 as aff_infer's
+     and seg_test's images; seg_train's presets; b5's dilation-2 conv and
+     ResNet-101's layer4 for the record): each output against its plain
+     version and F.conv2d (TF32 off), timed beside cuDNN's heuristic and
+     autotuned choices (each in a fresh process) with its share of the f32
+     peak; K2's launches in one make_train_step step (4, f32 variant) and in
+     one f32 CamInferencer.infer_batch with cuDNN's TF32 on (0) and off.
+Stages 2 and 3 run no PCM (stage 2's pair affinities, dense matrix and walk
+are plain PyTorch, as they are plain XLA in the JAX package; the accelerator
+CRF is torch ops, as it is XLA ops there); stage 3's convs are cuDNN's, as
+the JAX nets' are XLA's, except the f32 dilation-4 3x3 convs that
+models/layers.py sends to K2's f32 variant wherever cuDNN's TF32 is off (as
+it is in this script). Phases 16, 17 and 22 check that PCM did not launch
+and K2 only as that variant, phase 19 that neither did. K1's row counts its
+launches on phases 5, 20, 21 and 23, K2's on phases 7, 9, 10, 13, 16, 17,
+22 and 24, by path in `launches_by_path`.
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit; the last line is {"ok": true, "device": {...}}.
 Weights are random, from a seed; nothing is downloaded.
@@ -297,9 +309,28 @@ def phase_kernel_vs_plain(card_name: str) -> dict:
     return row
 
 
+def cam_bg_complete_scores(cam_d: torch.Tensor, e: float = 1e-5) -> torch.Tensor:
+    """The normalised class scores whose per-pixel foreground argmax
+    ops/cam.py:cam_bg_complete keeps."""
+    cam_d = torch.relu(cam_d)
+    return torch.relu(cam_d - e) / (cam_d.amax(dim=(2, 3), keepdim=True) + e)
+
+
 def phase_slice_parity():
-    """Full width on the card (kernel) vs the CPU (plain PCM), same weights."""
+    """Full width on the card (kernels, f32, TF32 off) vs the CPU (plain),
+    same weights, in two parts. (a) The heads' inputs as the heads see
+    them, fc8's raw CAM and f9's features, within CONV_RTOL of each one's
+    largest entry: the trunk, K2's dilation-4 convs included. (b) The fused
+    CAM within SLICE_ATOL of the CPU's run from the card's fc8 and f9
+    outputs: cam_bg_complete, PCM (K1 on the card), the resizes and the
+    fusion. Fed its own heads' outputs, the CPU may take the other side of
+    cam_bg_complete's per-pixel argmax at a near-tie, a step that no
+    rounding tolerance covers (one such pixel moved the fused CAM by
+    1.06e-2 when K2 took the dilation-4 convs); that end-to-end gap is
+    printed, with the pixels whose foreground argmax differs and the CPU's
+    margin there between its two highest normalised class scores."""
     h0, w0, b = 64, 96, 2
+    heads = ("fc8", "f9")
     gen = torch.Generator().manual_seed(SEED + 1)
     model_cpu = build_model("contrast", device="cpu",
                             generator=torch.Generator().manual_seed(SEED)).eval()
@@ -307,18 +338,47 @@ def phase_slice_parity():
     views = tuple(torch.randn(b, 2, 3, round(h0 * s), round(w0 * s), generator=gen)
                   for s in SCALES)
     label = (torch.rand(b, 20, generator=gen) > 0.5).float()
+    seen = {"cpu": {h: [] for h in heads}, "cuda": {h: [] for h in heads}}
+
+    def record(dev, head):
+        return lambda mod, inp, out: seen[dev][head].append(out.detach().float().cpu())
+
+    hooks = [getattr(m, h).register_forward_hook(record(dev, h))
+             for dev, m in (("cpu", model_cpu), ("cuda", model_gpu)) for h in heads]
     want = make_fused_msf_fn(model_cpu, (h0, w0))(views, label)
     pcm_cuda.reset_launches()
     got = make_fused_msf_fn(model_gpu, (h0, w0))(tuple(v.cuda() for v in views), label.cuda())
     torch.cuda.synchronize()
+    got = got.cpu()
     launches = pcm_cuda.variant_launches["fma"]
-    err = (got.cpu() - want).abs().max().item()
-    print(f"[slice-parity] fused CAM {tuple(got.shape)} card (kernel, f32, TF32 off) vs CPU "
-          f"(plain): max_abs_err={err:.3e} (atol {SLICE_ATOL}), PCM launches {launches}", flush=True)
+    for hook in hooks:
+        hook.remove()
+    head_err = max(float((g - c).abs().max() / c.abs().max())
+                   for h in heads for g, c in zip(seen["cuda"][h], seen["cpu"][h]))
+    fed = {h: iter(seen["cuda"][h]) for h in heads}
+    hooks = [getattr(model_cpu, h).register_forward_hook(lambda mod, inp, out, h=h: next(fed[h]))
+             for h in heads]
+    want_fed = make_fused_msf_fn(model_cpu, (h0, w0))(views, label)
+    for hook in hooks:
+        hook.remove()
+    err = (got - want_fed).abs().max().item()
+    flips, margins = 0, []
+    for g, c in zip(seen["cuda"]["fc8"], seen["cpu"]["fc8"]):
+        fg_g, fg_c = (cam_bg_complete_scores(t)[:, 1:] for t in (g, c))
+        flip = fg_g.argmax(dim=1) != fg_c.argmax(dim=1)
+        top2 = fg_c.topk(2, dim=1).values
+        flips += int(flip.sum())
+        margins += (top2[:, 0] - top2[:, 1])[flip].tolist()
+    print(f"[slice-parity] fc8 and f9 card vs CPU: max_abs_err {head_err:.3e} of their max "
+          f"(bound {CONV_RTOL}); fused CAM {tuple(got.shape)} card (kernels, f32, TF32 off) vs "
+          f"CPU (plain) from the card's fc8 and f9: max_abs_err={err:.3e} (atol {SLICE_ATOL}), "
+          f"from its own: {(got - want).abs().max().item():.3e}; foreground argmax flips {flips}, "
+          f"the CPU's top-2 margin there {[f'{m:.3e}' for m in margins]}; PCM launches "
+          f"{launches}", flush=True)
     if launches != len(SCALES) or pcm_cuda.launches != len(SCALES):
         raise SystemExit(f"chip_smoke: expected {len(SCALES)} f32 PCM launches, saw {launches} "
                          f"of {pcm_cuda.launches}")
-    if not err <= SLICE_ATOL:
+    if not (head_err <= CONV_RTOL and err <= SLICE_ATOL):
         raise SystemExit("chip_smoke: the slice on the card disagrees with the CPU")
 
 
@@ -599,11 +659,13 @@ def phase_train_parity():
     torch.cuda.empty_cache()
 
 
-def phase_train_working_size(card: str):
+def phase_train_working_size(card: str) -> int:
     """Full-width training at the CLI's default size: crop 448, low_res 128,
     batch 8; f32 (1 warm-up + 3 timed steps), then bf16 (1 + 2), then one
-    profiled step of each. Random init, so gradients are clipped (norm 5)."""
+    profiled step of each. Random init, so gradients are clipped (norm 5).
+    Returns K2's launches (the f32 steps' dilation-4 convs)."""
     n, crop, low = 8, 448, 128
+    conv_cuda.reset_launches()
     model = build_model("contrast", generator=torch.Generator().manual_seed(SEED))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     img = torch.randn(n, 3, crop, crop, generator=gen, device="cuda")
@@ -653,6 +715,7 @@ def phase_train_working_size(card: str):
             print(f"{card} |   {v:9.2f} ms {100 * v / busy:5.1f}%  {k[:100]}")
     del model, opt, step
     torch.cuda.empty_cache()
+    return conv_cuda.launches
 
 
 def make_voc(root: Path, n: int = 4):
@@ -674,11 +737,13 @@ def make_voc(root: Path, n: int = 4):
     return str(root), str(root.parent / "train.txt")
 
 
-def phase_train_cli(card: str):
-    """The training CLI: one epoch with a train state, then a resumed epoch."""
+def phase_train_cli(card: str) -> int:
+    """The training CLI: one epoch with a train state, then a resumed epoch.
+    Returns K2's launches."""
     from wseg_tpu_torch.cli import contrast_train
     from wseg_tpu_torch.utils.checkpoint import load_weights
 
+    conv_cuda.reset_launches()
     torch.backends.cudnn.benchmark = False  # as a fresh process has it: the CLI sets nothing
     shutil.rmtree(BUILD_SCRATCH, ignore_errors=True)
     root, train_list = make_voc(BUILD_SCRATCH / "VOC2012")
@@ -702,6 +767,7 @@ def phase_train_cli(card: str):
     print(f"{card} | training CLI: 1 epoch + a resumed epoch (4 images, batch 2, crop 448) "
           f"in {dt:.1f} s; contrast.pth loads with load_weights ({len(sd)} tensors)", flush=True)
     shutil.rmtree(BUILD_SCRATCH, ignore_errors=True)
+    return conv_cuda.launches
 
 def within(got: torch.Tensor, want: torch.Tensor, rtol: float, atol_of_max: float) -> float:
     """The largest |got - want| / (atol + rtol |want|), atol = atol_of_max x
@@ -907,11 +973,12 @@ def phase_rw_working_size(card: str):
     torch.cuda.empty_cache()
 
 
-def phase_aff_train_working_size(card: str):
+def phase_aff_train_working_size(card: str) -> int:
     """AffinityNet training at the CLI's defaults: crop 448, batch 8, f32,
-    cuDNN autotuned as in the aff_train CLI."""
+    cuDNN autotuned as in the aff_train CLI. Returns K2's launches."""
     from wseg_tpu_torch.train.affinity import make_aff_train_step
 
+    conv_cuda.reset_launches()
     n, crop = 8, 448
     model = spread_affinities(build_model("affinity",
                                           generator=torch.Generator().manual_seed(SEED)))
@@ -946,6 +1013,7 @@ def phase_aff_train_working_size(card: str):
     print_top(card, totals)
     del model, opt, step
     torch.cuda.empty_cache()
+    return conv_cuda.launches
 
 
 def check_pngs(folder: Path, names, sizes, what: str):
@@ -1383,11 +1451,18 @@ def phase_seg_train_working_size(card: str):
             print_top(card, totals, k=15)
         del model, opt, step, batch
         torch.cuda.empty_cache()
-    print(f"{card} | stage-3 training launched PCM {pcm_cuda.launches} and K2 "
-          f"{conv_cuda.launches} times (its convs are cuDNN's, as the JAX nets' are XLA's)",
-          flush=True)
-    if pcm_cuda.launches or conv_cuda.launches:
-        raise SystemExit("chip_smoke: stage 3 unexpectedly launched a port kernel")
+    return stage3_launches(card, "stage-3 training")
+
+
+def stage3_launches(card: str, what: str) -> int:
+    """Stage 3 launches no PCM; its convs are cuDNN's (as the JAX nets' are
+    XLA's) except the f32 dilation-4 3x3 convs that models/layers.py sends to
+    K2's f32 variant (TF32 is off here). Returns K2's launches."""
+    print(f"{card} | {what} launched PCM {pcm_cuda.launches} and K2 {conv_cuda.launches} "
+          f"times ({conv_cuda.variant_launches})", flush=True)
+    if pcm_cuda.launches or conv_cuda.launches != conv_cuda.variant_launches["fma"]:
+        raise SystemExit(f"chip_smoke: {what} launched a port kernel other than K2's f32 one")
+    return conv_cuda.launches
 
 
 def make_seg_root(root: Path, sizes, n_labels: int = 21):
@@ -1537,11 +1612,9 @@ def phase_seg_test_working_size(card: str):
                [(c["row"], c["col"]) for c in chunk], "seg_test")
     print(f"{card} | seg_test CLI on the same {n} images (one chunk: prep, device and post "
           f"in sequence, CRF on): {rate_line.strip()}", flush=True)
-    print(f"{card} | stage-3 testing launched PCM {pcm_cuda.launches} and K2 "
-          f"{conv_cuda.launches} times", flush=True)
-    if pcm_cuda.launches or conv_cuda.launches:
-        raise SystemExit("chip_smoke: stage 3 unexpectedly launched a port kernel")
+    launches = stage3_launches(card, "stage-3 testing")
     shutil.rmtree(base, ignore_errors=True)
+    return launches
 
 
 def run_cli(cwd: Path, main, argv) -> str:
@@ -2039,11 +2112,9 @@ def phase_seg_nets(card: str):
           f"card vs CPU: {err:.3e} of the max (bound {TRAIN_RTOL})", flush=True)
     if not err <= TRAIN_RTOL:
         raise SystemExit("chip_smoke: the bucketed v3+ forward on the card disagrees with the CPU")
-    print(f"{card} | the new stage-3 nets launched PCM {pcm_cuda.launches} and K2 "
-          f"{conv_cuda.launches} times", flush=True)
-    if pcm_cuda.launches or conv_cuda.launches:
-        raise SystemExit("chip_smoke: stage 3 unexpectedly launched a port kernel")
+    launches = stage3_launches(card, "the new stage-3 nets")
     torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2276,6 +2347,176 @@ def phase_data_parallel(card: str) -> int:
     return launches
 
 
+# (label, x (B, CI, H, W), CO, dilation), channels_last as every trainer
+# feeds it: the f32 dilation-4 convs of b6 / b7 in training (stage 1 and
+# AffinityNet at crop 448 and the 128 view, batch 8; outputs between them;
+# batch-1 images as aff_infer and seg_test run them; seg_train's presets),
+# which models/layers.py sends to K2 by its rule, and for the record b5's
+# dilation-2 conv and ResNet-101's layer4, which stay on cuDNN
+TRUNK_CONVS = [
+    ("b6 crop 448 b8", (8, 512, 56, 56), 1024, 4),
+    ("b7 crop 448 b8", (8, 1024, 56, 56), 2048, 4),
+    ("b6 view 128 b8", (8, 512, 16, 16), 1024, 4),
+    ("b7 view 128 b8", (8, 1024, 16, 16), 2048, 4),
+    ("b6 24x24 b8", (8, 512, 24, 24), 1024, 4),
+    ("b7 24x24 b8", (8, 1024, 24, 24), 2048, 4),
+    ("b6 32x32 b8", (8, 512, 32, 32), 1024, 4),
+    ("b7 32x32 b8", (8, 1024, 32, 32), 2048, 4),
+    ("b6 40x40 b8", (8, 512, 40, 40), 1024, 4),
+    ("b7 40x40 b8", (8, 1024, 40, 40), 2048, 4),
+    ("b6 47x63 b1", (1, 512, 47, 63), 1024, 4),
+    ("b7 47x63 b1", (1, 1024, 47, 63), 2048, 4),
+    ("b7 94x126 b1", (1, 1024, 94, 126), 2048, 4),
+    ("b5 crop 448 b8 d2", (8, 512, 56, 56), 1024, 2),
+    ("seg v1/R38 b6 crop 448 b10", (10, 512, 56, 56), 1024, 4),
+    ("seg v1/R38 b7 crop 448 b10", (10, 1024, 56, 56), 2048, 4),
+    ("seg v2/R101 layer4 crop 448 b12", (12, 512, 56, 56), 512, 4),
+]
+
+
+def trunk_conv_inputs(gen, shape, co):
+    x = torch.randn(shape, generator=gen, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn((co, shape[1], 3, 3), generator=gen, device="cuda") / (9 * shape[1]) ** 0.5
+    return x, w
+
+
+def cudnn_trunk_conv_ms(autotuned: bool) -> dict:
+    """{label: [ms, s of the first call]} of F.conv2d (f32, TF32
+    off) on each TRUNK_CONVS case, cuDNN autotuned or on its heuristics. Run
+    in a fresh process (cudnn_yardstick): PyTorch caches a cuDNN plan by shape,
+    not by the autotune flag."""
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = autotuned
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    out = {}
+    for label, shape, co, d in TRUNK_CONVS:
+        x, w = trunk_conv_inputs(gen, shape, co)
+        t0 = time.perf_counter()
+        F.conv2d(x, w, padding=d, dilation=d)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        out[label] = [cuda_ms(lambda: F.conv2d(x, w, padding=d, dilation=d), iters=3,
+                              warmup=1), first]
+        del x, w
+    return out
+
+
+def cudnn_yardstick(autotuned: bool) -> dict:
+    """cudnn_trunk_conv_ms in a fresh process (the yardstick; the port never
+    calls it for these convs)."""
+    code = ("import json, chip_smoke; print('CUDNN ' + json.dumps("
+            f"chip_smoke.cudnn_trunk_conv_ms({autotuned})))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=1200, cwd=Path(__file__).resolve().parent)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("CUDNN ")]
+    if proc.returncode != 0 or not lines:
+        raise SystemExit(f"chip_smoke: the cuDNN yardstick failed (rc {proc.returncode}):\n"
+                         f"{proc.stderr[-3000:]}")
+    return json.loads(lines[-1][len("CUDNN "):])
+
+
+def phase_trunk_convs(card_name: str, card: str) -> dict:
+    """K2's f32 variant on the trunk's shapes (TRUNK_CONVS): each output held
+    against its plain version and F.conv2d (TF32 off) within phase 3's
+    tolerances (CONV_RTOL), timed beside cuDNN's heuristic and autotuned
+    choices (each in a fresh process), with its TFLOP/s and share of the f32
+    peak; then the launches of one make_train_step step (f32, TF32 off, crop
+    448, batch 8, NHWC-view images as the CLI feeds them: 4 of the f32
+    variant) and of one CamInferencer.infer_batch in f32 with cuDNN's TF32 on
+    (contrast_infer's setting: none) and off (b6 and b7 at each scale)."""
+    import torch.nn.functional as F
+
+    part, peak, _ = peaks(card_name)
+    heuristic, autotuned = cudnn_yardstick(False), cudnn_yardstick(True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    rows = {}
+    for name, shape, co, d in TRUNK_CONVS:
+        x, w = trunk_conv_inputs(gen, shape, co)
+        before = conv_cuda.variant_launches["fma"]
+        got = conv_cuda.conv3x3_dilated_nchw(x, w, d)
+        torch.cuda.synchronize()
+        plain = conv3x3_dilated_plain(x.permute(0, 2, 3, 1), w.permute(2, 3, 1, 0), d)
+        plain = plain.permute(0, 3, 1, 2)
+        lib = F.conv2d(x, w, padding=d, dilation=d)
+        err = max(float((got - plain).abs().max()), float((got - lib).abs().max()))
+        ok = (bool((got - plain).abs().le(CONV_RTOL + CONV_RTOL * plain.abs()).all())
+              and bool((got - lib).abs().le(CONV_RTOL + CONV_RTOL * lib.abs()).all())
+              and got.is_contiguous(memory_format=torch.channels_last)
+              and conv_cuda.variant_launches["fma"] == before + 1)
+        del got, plain, lib
+        if not ok:
+            raise SystemExit(f"chip_smoke: K2's f32 variant disagrees at {name}")
+        ms = cuda_ms(lambda: conv_cuda.conv3x3_dilated_nchw(x, w, d))
+        flops = 2.0 * 9 * shape[0] * shape[2] * shape[3] * shape[1] * co
+        rows[name] = {"ms": ms, "tflops": flops / ms / 1e9,
+                      "f32_peak_pct": 100 * flops / (ms / 1e3) / peak,
+                      "heuristic_ms": heuristic[name][0], "autotuned_ms": autotuned[name][0],
+                      "autotune_first_call_s": autotuned[name][1], "max_abs_err": err}
+        r = rows[name]
+        print(f"{card} | K2 f32 {name} ({', '.join(map(str, shape))}) -> {co} d={d}: "
+              f"{ms:.3f} ms, {r['tflops']:.1f} TFLOP/s, {r['f32_peak_pct']:.1f}% of "
+              f"{peak / 1e12:.0f}; cuDNN heuristic {r['heuristic_ms']:.3f} ms "
+              f"({flops / r['heuristic_ms'] / 1e9:.2f} TFLOP/s), autotuned "
+              f"{r['autotuned_ms']:.3f} ms ({flops / r['autotuned_ms'] / 1e9:.1f} TFLOP/s; "
+              f"first call {r['autotune_first_call_s']:.1f} s); max |err| vs plain and "
+              f"F.conv2d {err:.2e}", flush=True)
+        del x, w
+    torch.cuda.empty_cache()
+
+    launches = {}
+    torch.backends.cudnn.benchmark = False  # as contrast_train and contrast_infer run
+    model = build_model("contrast", generator=torch.Generator().manual_seed(SEED))
+    opt = PolySGD(param_groups(model), 0.01, 5e-4, 1000)
+    step = make_train_step(model, opt, 0.2, low_res=128, grad_clip=5.0,
+                           generator=torch.Generator(device="cuda").manual_seed(SEED))
+    img = torch.randn(BATCH, 448, 448, 3, generator=gen, device="cuda").permute(0, 3, 1, 2)
+    label = torch.zeros(BATCH, 20, device="cuda")
+    label[:, 14] = 1.0
+    step(img, label)
+    conv_cuda.reset_launches()
+    step(img, label)
+    torch.cuda.synchronize()
+    launches["make_train_step, f32, TF32 off (phase 24)"] = dict(conv_cuda.variant_launches)
+    del model, opt, step, img
+    torch.cuda.empty_cache()
+
+    model = build_model("contrast", generator=torch.Generator().manual_seed(SEED)).eval()
+    rng = np.random.RandomState(SEED + 24)
+    items = []
+    for i, (h, w) in enumerate([(333, 500), (375, 441)]):
+        views_i = []
+        for s in SCALES:
+            v = rng.randn(round(h * s), round(w * s), 3).astype(np.float32)
+            views_i += [v, v[:, ::-1].copy()]
+        lab = np.zeros(20, np.float32)
+        lab[[i, 14]] = 1.0
+        items.append((views_i, lab, (h, w)))
+    inferencer = CamInferencer(model, bucket=64)
+    for tf32 in (True, False):
+        torch.backends.cudnn.allow_tf32 = tf32
+        conv_cuda.reset_launches()
+        inferencer.infer_batch(items)
+        torch.cuda.synchronize()
+        launches[f"CamInferencer.infer_batch, f32, cuDNN TF32 {'on' if tf32 else 'off'} "
+                 "(phase 24)"] = dict(conv_cuda.variant_launches)
+    torch.backends.cudnn.allow_tf32 = False
+    del model, inferencer
+    torch.cuda.empty_cache()
+    print(f"{card} | K2 launches by variant: {launches}", flush=True)
+    train = launches["make_train_step, f32, TF32 off (phase 24)"]
+    cam_on = launches["CamInferencer.infer_batch, f32, cuDNN TF32 on (phase 24)"]
+    cam_off = launches["CamInferencer.infer_batch, f32, cuDNN TF32 off (phase 24)"]
+    if train != {"wgmma": 0, "mma_sync": 0, "fma": 4} or any(cam_on.values()) \
+            or not cam_off["fma"] or cam_off["fma"] != sum(cam_off.values()):
+        raise SystemExit("chip_smoke: K2's f32 variant did not run where models/layers.py "
+                         "routes the dilation-4 convs, or ran where it should not")
+    return {"shapes": rows, "launches": {k: sum(v.values()) for k, v in launches.items()}}
+
+
 def timed(name: str, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -2294,27 +2535,37 @@ def main() -> int:
     timed("4 slice parity", phase_slice_parity)
     pcm_row["launches"] = timed("5 CAM inference", phase_working_size, card)
     conv_row = timed("6 conv vs plain", phase_conv_vs_plain, name, card)
-    conv_row["launches"] = timed("7 conv probe", phase_conv_probe, card)
+    conv_by_path = {"conv probe (phase 7)": timed("7 conv probe", phase_conv_probe, card)}
     timed("8 train parity", phase_train_parity)
-    timed("9 training", phase_train_working_size, card)
-    timed("10 training CLI", phase_train_cli, card)
+    conv_by_path["training, f32 and bf16 (phase 9)"] = timed(
+        "9 training", phase_train_working_size, card)
+    conv_by_path["training CLI (phase 10)"] = timed("10 training CLI", phase_train_cli, card)
     timed("11 stage-2 parity", phase_stage2_parity)
     timed("12 random walk", phase_rw_working_size, card)
-    timed("13 AffinityNet training", phase_aff_train_working_size, card)
+    conv_by_path["AffinityNet training, f32, autotuned (phase 13)"] = timed(
+        "13 AffinityNet training", phase_aff_train_working_size, card)
     timed("14 stage-2 CLI chain", phase_stage2_cli, card)
     timed("15 stage-3 parity", phase_seg_parity)
-    timed("16 seg training", phase_seg_train_working_size, card)
-    timed("17 seg_test TTA", phase_seg_test_working_size, card)
+    conv_by_path["stage-3 training, f32 (phase 16)"] = timed(
+        "16 seg training", phase_seg_train_working_size, card)
+    conv_by_path["seg_test TTA, f32 (phase 17)"] = timed(
+        "17 seg_test TTA", phase_seg_test_working_size, card)
     timed("18 stage-3 CLI chain", phase_seg_cli, card)
     timed("19 accelerator CRF", phase_crf, card)
     by_path = {"CAM inference (phase 5)": pcm_row["launches"]}
     by_path.update(timed("20 bench twin", phase_bench, card))
     by_path["SEAMNet forward (phase 21)"] = timed("21 SEAMNet", phase_seam, card)
-    timed("22 stage-3 nets", phase_seg_nets, card)
+    conv_by_path["stage-3 nets, f32 (phase 22)"] = timed(
+        "22 stage-3 nets", phase_seg_nets, card)
     by_path["data-parallel CamInferencer, f32 (phase 23)"] = timed(
         "23 data parallel", phase_data_parallel, card)
     pcm_row["launches"] = sum(by_path.values())
     pcm_row["launches_by_path"] = by_path
+    trunk = timed("24 K2 on the trunk's f32 convs", phase_trunk_convs, name, card)
+    conv_by_path.update(trunk["launches"])
+    conv_row["launches"] = sum(conv_by_path.values())
+    conv_row["launches_by_path"] = conv_by_path
+    conv_row["f32_trunk"] = trunk["shapes"]
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [pcm_row, conv_row]}))
     print(card)

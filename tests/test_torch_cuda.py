@@ -210,6 +210,81 @@ def test_conv_variants_agree_and_refuse(cuda):
         conv_cuda.conv3x3_dilated(x.float(), k.float(), variant="wgmma")
 
 
+# (x (B, CI, H, W), CO, dilation): 16-byte loads (CI a multiple of 4) and
+# element-wise ones (CI 37), CO and pixel tails, dilation 2 and 4
+NCHW_CASES = [
+    ((2, 64, 20, 32), 256, 4),
+    ((2, 37, 13, 19), 150, 4),
+    ((1, 64, 13, 10), 72, 4),
+    ((2, 64, 12, 12), 130, 2),
+    ((3, 40, 9, 16), 8, 4),
+]
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("shape,co,d", NCHW_CASES)
+def test_conv_nchw_entry_matches_conv2d(cuda, shape, co, d, channels_last):
+    """conv3x3_dilated_nchw (the trunk's entry point), from x in either
+    memory format, against F.conv2d with TF32 off and the plain version; the
+    output is channels_last."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=cuda).manual_seed(co + d)
+    x = torch.randn(shape, generator=gen, device=cuda)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.randn((co, shape[1], 3, 3), generator=gen, device=cuda) / (9 * shape[1]) ** 0.5
+    before = conv_cuda.variant_launches["fma"]
+    got = conv_cuda.conv3x3_dilated_nchw(x, w, d)
+    torch.cuda.synchronize()
+    assert conv_cuda.variant_launches["fma"] == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    plain = conv3x3_dilated_plain(x.permute(0, 2, 3, 1), w.permute(2, 3, 1, 0), d)
+    torch.testing.assert_close(got, plain.permute(0, 3, 1, 2), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, F.conv2d(x, w, padding=d, dilation=d), rtol=1e-4, atol=1e-4)
+
+
+def test_dilated_layer_takes_k2_by_the_rule(cuda):
+    """A dilation-4 layer of 1024 output channels runs K2 for channels_last
+    f32 with cuDNN's TF32 off (forward and gradients as F.conv2d's), and
+    F.conv2d with TF32 on, in bf16, on contiguous x, at 512 output channels
+    and, with cuDNN autotuning, on an output under K2_MIN_AUTOTUNED_PIXELS."""
+    import torch.nn.functional as F
+    from wseg_tpu_torch.models import layers
+
+    layer = layers.conv(64, 1024, 3, dilation=4).to(cuda)
+    x = torch.randn(2, 64, 16, 24, device=cuda).contiguous(memory_format=torch.channels_last)
+    x.requires_grad_(True)
+    before = conv_cuda.launches
+    out = layer(x)
+    assert conv_cuda.launches == before + 1
+    want = F.conv2d(x, layer.weight, padding=4, dilation=4)
+    g = torch.randn_like(want)
+    got_grads = torch.autograd.grad(out, (x, layer.weight), g)
+    want_grads = torch.autograd.grad(want, (x, layer.weight), g)
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+    for a, b in zip(got_grads, want_grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    x = x.detach()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        layer(x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    torch.testing.assert_close(layer(x.contiguous()), want.detach(), rtol=1e-4, atol=1e-4)
+    narrow = layers.conv(64, 512, 3, dilation=4).to(cuda)
+    torch.testing.assert_close(narrow(x), F.conv2d(x, narrow.weight, padding=4, dilation=4),
+                               rtol=1e-4, atol=1e-4)
+    assert 2 * 16 * 24 < layers.K2_MIN_AUTOTUNED_PIXELS
+    torch.backends.cudnn.benchmark = True
+    try:
+        layer(x)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    layer.to(torch.bfloat16)(x.bfloat16())
+    assert conv_cuda.launches == before + 1
+
+
 def test_conv_kernel_rejects_unsupported(cuda):
     x = torch.zeros(1, 8, 8, 4, device=cuda)
     k = torch.zeros(3, 3, 4, 16, device=cuda)

@@ -14,12 +14,16 @@ the launch:
 - "mma_sync": every other bf16 shape: `conv3x3_bf16_kernel`, mma.sync.
 - "fma": f32, exact (no TF32): `conv3x3_f32_kernel`.
 
+Two entry points: `conv3x3_dilated`, the JAX kernel's (B, H, W, CI) x (3, 3,
+CI, CO) interface (cli/conv_probe.py), and `conv3x3_dilated_nchw`, a torch
+conv layer's channels_last (B, CI, H, W) x (CO, CI, 3, 3) in f32, a view of
+the first, which the trunk's dilation-4 convs call in training
+(models/layers.py:DilatedConv2d).
 A tensor on the CPU goes through the plain version
 (ops/conv.py:conv3x3_dilated_plain); a CUDA tensor launches a kernel or
 raises. `launches` counts kernel launches and `variant_launches` counts them
 per variant, so a run can show that its path went through the kernel it
-expected. Like the JAX package's models, the port's trunk does not call this
-kernel: its entry point is the probe, cli/conv_probe.py.
+expected.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from wseg_tpu_torch.kernels import _build
 from wseg_tpu_torch.ops.conv import conv3x3_dilated_plain
 
 TILE_WIDTHS = (128, 64, 32, 16)  # pixel-tile widths of the wgmma kernel; th = 128 // tw
+F32_TILE_CO = 128  # output channels a block of the f32 kernel takes
 VARIANTS = ("wgmma", "mma_sync", "fma")
 
 launches = 0
@@ -75,13 +80,29 @@ def _launchers():
     """The C entry points, built on first use, with their argument types."""
     lib = _build.load("conv3x3")
     p, i = ctypes.c_void_p, ctypes.c_int
-    tiled = lib.conv3x3_dilated_launch  # mma_sync and fma
-    tiled.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
+    bf16 = lib.conv3x3_bf16_launch  # mma_sync
+    bf16.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+    f32 = lib.conv3x3_f32_launch  # fma
+    f32.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
     wgmma = lib.conv3x3_wgmma_launch
     wgmma.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
-    for fn in (tiled, wgmma):
+    for fn in (bf16, f32, wgmma):
         fn.restype = ctypes.c_int
-    return tiled, wgmma
+    return bf16, f32, wgmma
+
+
+def _launch_f32(x: torch.Tensor, k: torch.Tensor, out: torch.Tensor, dilation: int,
+                tile_co: int) -> int:
+    """The f32 kernel on contiguous x, k and out; returns the C entry point's
+    cudaError_t."""
+    b, h, w, ci = x.shape
+    co = k.shape[3]
+    vec_a = ci % 4 == 0 and x.data_ptr() % 16 == 0
+    vec_b = co % 4 == 0 and tile_co % 4 == 0 and k.data_ptr() % 16 == 0
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        return _launchers()[1](x.data_ptr(), k.data_ptr(), out.data_ptr(), int(vec_a),
+                               int(vec_b), b, h, w, ci, co, dilation, tile_co, stream)
 
 
 def conv3x3_dilated(x: torch.Tensor, k: torch.Tensor, dilation: int = 4,
@@ -124,23 +145,43 @@ def conv3x3_dilated(x: torch.Tensor, k: torch.Tensor, dilation: int = 4,
                          "tiles exceed the kernel's grid")
     out = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
 
-    tiled, wgmma = _launchers()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if variant == "wgmma":
-            k_kmajor = k.permute(3, 0, 1, 2).contiguous()  # (CO, 3, 3, CI)
-            _, tw = conv_tile_shape(h, w)
-            err = wgmma(x.data_ptr(), k_kmajor.data_ptr(), out.data_ptr(), b, h, w, ci, co,
-                        int(dilation), int(tile_co), tw, stream)
-        else:
-            k = k.contiguous()
-            vec = (variant == "mma_sync" and ci % 8 == 0 and co % 8 == 0
-                   and x.data_ptr() % 16 == 0 and k.data_ptr() % 16 == 0)
-            err = tiled(x.data_ptr(), k.data_ptr(), out.data_ptr(),
-                         int(x.dtype == torch.bfloat16), int(vec), b, h, w, ci, co,
-                         int(dilation), int(tile_co), stream)
+    if variant == "fma":
+        err = _launch_f32(x, k.contiguous(), out, int(dilation), int(tile_co))
+    else:
+        bf16, _, wgmma = _launchers()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            if variant == "wgmma":
+                k_kmajor = k.permute(3, 0, 1, 2).contiguous()  # (CO, 3, 3, CI)
+                _, tw = conv_tile_shape(h, w)
+                err = wgmma(x.data_ptr(), k_kmajor.data_ptr(), out.data_ptr(), b, h, w, ci, co,
+                            int(dilation), int(tile_co), tw, stream)
+            else:
+                k = k.contiguous()
+                vec = (ci % 8 == 0 and co % 8 == 0 and x.data_ptr() % 16 == 0
+                       and k.data_ptr() % 16 == 0)
+                err = bf16(x.data_ptr(), k.data_ptr(), out.data_ptr(), int(vec), b, h, w, ci,
+                           co, int(dilation), int(tile_co), stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_dilated: CUDA launch ({variant}) failed with error {err}")
     launches += 1
     variant_launches[variant] += 1
     return out
+
+
+def conv3x3_dilated_nchw(x: torch.Tensor, w: torch.Tensor, dilation: int = 4) -> torch.Tensor:
+    """F.conv2d(x, w, padding=dilation, dilation=dilation) of float32 x (B,
+    CI, H, W) and w (CO, CI, 3, 3) on the f32 kernel: exact f32 products and
+    sums (no TF32). `conv3x3_dilated` on the NHWC view of x, with F32_TILE_CO
+    output channels a block; channels_last x is read in place (any other x is
+    copied to NHWC first), and the output is channels_last. The kernel's
+    rows, (3, 3, CI, CO), are written once per call."""
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[2:]) != (3, 3) or w.shape[1] != x.shape[1]:
+        raise ValueError(f"conv3x3_dilated_nchw: x {tuple(x.shape)} and w {tuple(w.shape)} "
+                         "must be (B, CI, H, W) and (CO, CI, 3, 3)")
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError(f"conv3x3_dilated_nchw: x and w must be float32, got {x.dtype} and "
+                        f"{w.dtype}")
+    out = conv3x3_dilated(x.permute(0, 2, 3, 1), w.permute(2, 3, 1, 0), dilation,
+                          tile_co=F32_TILE_CO, variant="fma")
+    return out.permute(0, 3, 1, 2)

@@ -42,13 +42,16 @@
 //     element-wise loads when CI or CO is not a multiple of 8 or a pointer
 //     is not 16-byte aligned), double-buffered, rows padded by 16 bytes so
 //     that ldmatrix reads hit distinct banks.
-//   * conv3x3_f32_kernel (the exactness path): the same block tile with f32
-//     FMA on the CUDA cores, 8x8 outputs a thread, no TF32.
+//   * conv3x3_f32_kernel (f32, exact: no TF32): FMA on the CUDA cores, bound
+//     by operations at 67 TFLOP/s (b7's crop-448 training shape, 8 x 56 x 56,
+//     1024 -> 2048: 947 GFLOP, 14.1 ms, against 0.38 GB of operands and
+//     output). NHWC; a 4-stage cp.async ring, one barrier a chunk, 128 x
+//     128 block tiles of 8 x 8 outputs a thread (its own note below).
 //
 // Tails: H and W (the halo), CI and CO are zero-filled on load and masked on
 // store; nothing is padded in device memory. `tile_co` output channels go to
 // one block, which walks them in N-wide steps (wgmma: N = 64, 128 or 256;
-// mma.sync: 128).
+// mma.sync and f32: 128).
 
 #include <climits>
 #include <cuda_bf16.h>
@@ -64,8 +67,6 @@ constexpr int NT = 256;      // threads per block (8 warps)
 constexpr int BK = 32;       // K chunk, bf16
 constexpr int AST = BK + 8;  // A row stride in shared memory (bf16): 80 bytes
 constexpr int BST = BN + 8;  // B row stride (bf16): 272 bytes
-constexpr int FBK = 16;      // K chunk, f32
-constexpr int FST = BM + 4;  // f32 row stride (floats), both operands
 
 struct Conv {
   int b, h, w, ci, co, d, m, tile_co;
@@ -232,72 +233,215 @@ conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   }
 }
 
-__global__ void __launch_bounds__(NT)
+// ---- conv3x3_f32_kernel ----------------------------------------------------
+//
+// f32 FMA on the CUDA cores, no TF32: the exactness path, and the trunk's
+// dilation-4 convs in training (models/layers.py sends them here, its
+// channels_last tensors read as NHWC).
+//
+// Block tile 128 pixels x 128 output channels, K chunks of 16 (one tap, 16
+// channels), 256 threads of 8 x 8 outputs each. A ring of F_STAGES chunks in
+// shared memory is filled with cp.async, so the loads of the next chunks are
+// in flight while a chunk's products run; one barrier a chunk. One 16-byte
+// cp.async holds four consecutive channels of one pixel (element-wise when CI
+// is no multiple of 4), and src-size 0 zero-fills the halo and the channel
+// tail, so the A tile lands as [m][k] (rows padded to 20 floats). One
+// iteration ahead of the products, the threads transpose it into one of two
+// [k][m] buffers (rows padded to 132 floats): two conflict-free float4 reads
+// and eight conflict-free scalar writes each. The products read it with
+// float4 along the pixels. B is the kernel as (9 * CI, CO) rows, loaded as
+// float4 along CO (element-wise when CO or tile_co is no multiple of 4).
+// Warps are 2 x 4 over the tile (64 x 32 each), lanes 8 x 4; a thread owns
+// pixels in runs of 4 and channels in runs of 4, stored as float4 along the
+// channels.
+
+constexpr int F_BM = 128;                // output pixels per block tile
+constexpr int F_BN = 128;                // output channels per block tile
+constexpr int F_BK = 16;                 // K chunk: channels of one tap
+constexpr int F_STAGES = 4;              // cp.async ring depth
+constexpr int F_NT = 256;                // threads per block
+// Two blocks an SM cap a thread at 128 registers (a few spills); on the card
+// that ran 4-7% faster at b6 / b7's crop-448 shapes than one block without.
+constexpr int F_MIN_BLOCKS = 2;
+constexpr int F_AST = F_BM + 4;          // [k][m] A row stride (floats)
+constexpr int F_MST = F_BK + 4;          // staged [m][k] A row stride (floats)
+constexpr int F_A = F_BM * F_MST;        // floats of A a stage
+constexpr int F_STAGE = F_A + F_BK * F_BN;  // floats a stage, A then B
+constexpr int F_BYTES = (F_STAGES * F_STAGE + 2 * F_BK * F_AST) * 4;  // + two [k][m]
+
+// Element offset of x at the tap (dy, dx) of pixel q, channel 0, or -1 in the
+// halo.
+__device__ __forceinline__ long long f32_tap(const Conv& p, const Pix& q, int dy, int dx) {
+  const int iy = q.y + (dy - 1) * p.d, ix = q.x + (dx - 1) * p.d;
+  if (!q.valid || iy < 0 || iy >= p.h || ix < 0 || ix >= p.w) return -1;
+  return (((long long)q.b * p.h + iy) * p.w + ix) * p.ci;
+}
+
+// Stage chunk kt (tap kt / nci, channels (kt % nci) * F_BK ..) of the A tile
+// and of the B tile (output channels n0 ..). A: channels 4 (tid % 4) .. + 3
+// of the thread's 2 pixels, m0 + tid / 4 + 64 e (e = 0, 1). B: rows kr and
+// kr + 8 (kr = tid / 32) of columns 4 (tid % 32) .. + 3.
+template <bool VA, bool VB>
+__device__ __forceinline__ void f32_load(float* a_s, float* b_s, const float* __restrict__ x,
+                                         const float* __restrict__ k, const Conv& p,
+                                         const Pix (&pix)[2], int n0, int kt, int nci,
+                                         int tid) {
+  const int tap = kt / nci, c0 = (kt - tap * nci) * F_BK;
+  const int dy = tap / 3, dx = tap - dy * 3;
+  const int r = tid >> 2, q = (tid & 3) * 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long off = f32_tap(p, pix[i], dy, dx);
+    float* dst = a_s + (r + 64 * i) * F_MST + q;
+    if (VA) {
+      const bool ok = off >= 0 && c0 + q < p.ci;
+      cp_async16(dst, ok ? x + off + c0 + q : x, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = off >= 0 && c0 + q + e < p.ci;
+        cp_async4(dst + e, ok ? x + off + c0 + q + e : x, ok);
+      }
+    }
+  }
+  const int kr = tid >> 5, bc = (tid & 31) * 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = kr + 8 * i;
+    const float* src = k + ((long long)tap * p.ci + c0 + row) * p.co + n0 + bc;
+    float* dst = b_s + row * F_BN + bc;
+    if (VB) {
+      const bool ok = c0 + row < p.ci && n0 + bc < p.co;
+      cp_async16(dst, ok ? src : k, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = c0 + row < p.ci && n0 + bc + e < p.co;
+        cp_async4(dst + e, ok ? src + e : k, ok);
+      }
+    }
+  }
+}
+
+// The staged [m][k] A tile into a [k][m] buffer: thread tid moves pixel
+// tid % 128, channels 8 (tid / 128) .. + 7.
+__device__ __forceinline__ void f32_transpose(float* km, const float* mk, int tid) {
+  const int r = tid & 127, c = (tid >> 7) * 8;
+  const float4 v0 = *reinterpret_cast<const float4*>(mk + r * F_MST + c);
+  const float4 v1 = *reinterpret_cast<const float4*>(mk + r * F_MST + c + 4);
+  float* o = km + c * F_AST + r;
+  o[0] = v0.x;
+  o[F_AST] = v0.y;
+  o[2 * F_AST] = v0.z;
+  o[3 * F_AST] = v0.w;
+  o[4 * F_AST] = v1.x;
+  o[5 * F_AST] = v1.y;
+  o[6 * F_AST] = v1.z;
+  o[7 * F_AST] = v1.w;
+}
+
+// acc += the chunk's products. Thread (lm, ln) of its warp's 64 x 32 tile at
+// (wm, wn): acc[4 h + e][4 g + j] is pixel wm + 32 h + 4 lm + e, column wn +
+// 16 g + 4 ln + j (h, g = 0, 1; e, j = 0 .. 3).
+__device__ __forceinline__ void f32_chunk(float (&acc)[8][8], const float* a_s,
+                                          const float* b_s, int wm, int wn, int lm, int ln) {
+  const float* ap = a_s + wm + 4 * lm;
+  const float* bp = b_s + wn + 4 * ln;
+#pragma unroll
+  for (int kk = 0; kk < F_BK; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(ap + kk * F_AST);
+    const float4 a1 = *reinterpret_cast<const float4*>(ap + kk * F_AST + 32);
+    const float4 b0 = *reinterpret_cast<const float4*>(bp + kk * F_BN);
+    const float4 b1 = *reinterpret_cast<const float4*>(bp + kk * F_BN + 16);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+template <bool VA, bool VB>
+__global__ void __launch_bounds__(F_NT, F_MIN_BLOCKS)
 conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ k,
                    float* __restrict__ out, Conv p) {
-  __shared__ __align__(16) float a_s[FBK * FST];  // A chunk transposed: [k][m]
-  __shared__ __align__(16) float b_s[FBK * FST];  // B chunk: [k][n]
+  extern __shared__ __align__(16) float f32_ring[];
+  float* const km = f32_ring + F_STAGES * F_STAGE;  // [k][m] buffers 0 and 1
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
+  const int lm = lane & 7, ln = lane >> 3;
+  const int m0 = blockIdx.x * F_BM;
   const int co0 = blockIdx.y * p.tile_co;
   const int co_end = min(co0 + p.tile_co, p.co);
-  const int nci = (p.ci + FBK - 1) / FBK;
+  const int nci = (p.ci + F_BK - 1) / F_BK;
   const int kt_total = 9 * nci;
-  // loader roles: A row ar, channels ac..ac+7; B row br, columns bc..bc+7
-  const int ar = tid >> 1, ac = (tid & 1) * 8;
-  const int br = tid >> 4, bc = (tid & 15) * 8;
-  const Pix apix = pixel(p, m0 + ar);
 
-  for (int n0 = co0; n0 < co_end; n0 += BN) {
+  Pix pix[2];  // the pixels this thread loads
+#pragma unroll
+  for (int e = 0; e < 2; ++e) pix[e] = pixel(p, m0 + (tid >> 2) + 64 * e);
+
+  for (int n0 = co0; n0 < co_end; n0 += F_BN) {
     float acc[8][8];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-    for (int kt = 0; kt < kt_total; ++kt) {
-      const int tap = kt / nci, c0 = (kt - tap * nci) * FBK;
-      const int dy = tap / 3, dx = tap - dy * 3;
-      __syncthreads();  // the previous chunk has been read
-      const long long off = tap_offset(p, apix, dy, dx);
+    __syncthreads();  // the previous N step's last chunk has been read
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = c0 + ac + j;
-        a_s[(ac + j) * FST + ar] = (off >= 0 && c < p.ci) ? x[off + c] : 0.f;
-      }
-      const int kr = c0 + br;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + bc + j;
-        b_s[br * FST + bc + j] =
-            (kr < p.ci && n < p.co) ? k[((long long)tap * p.ci + kr) * p.co + n] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < FBK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&a_s[kk * FST + ty * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&a_s[kk * FST + 64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&b_s[kk * FST + tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&b_s[kk * FST + 64 + tx * 4]);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
+    for (int s = 0; s < F_STAGES - 1; ++s) {
+      if (s < kt_total)
+        f32_load<VA, VB>(f32_ring + s * F_STAGE, f32_ring + s * F_STAGE + F_A, x, k, p, pix,
+                         n0, s, nci, tid);
+      cp_async_commit();
     }
+    cp_async_wait<F_STAGES - 2>();  // chunk 0 into [k][m] buffer 0
+    __syncthreads();
+    f32_transpose(km, f32_ring, tid);
+    for (int kt = 0; kt < kt_total; ++kt) {
+      // chunk kt + 1 has landed (this thread's copies) ...
+      cp_async_wait<F_STAGES - 3>();
+      // ... everyone's; chunk kt - 1 has been read and chunk kt is in its
+      // [k][m] buffer
+      __syncthreads();
+      if (kt + 1 < kt_total)
+        f32_transpose(km + ((kt + 1) & 1) * F_BK * F_AST,
+                      f32_ring + ((kt + 1) % F_STAGES) * F_STAGE, tid);
+      const int next = kt + F_STAGES - 1;
+      if (next < kt_total) {
+        float* st = f32_ring + (next % F_STAGES) * F_STAGE;
+        f32_load<VA, VB>(st, st + F_A, x, k, p, pix, n0, next, nci, tid);
+      }
+      cp_async_commit();
+      f32_chunk(acc, km + (kt & 1) * F_BK * F_AST,
+                f32_ring + (kt % F_STAGES) * F_STAGE + F_A, wm, wn, lm, ln);
+    }
+    cp_async_wait<0>();
 
+    // float4 stores: 4 channels (n a multiple of 4)
+    const bool vec = p.co % 4 == 0 && p.tile_co % 4 == 0;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-      if (m >= p.m) continue;
-      float* o = out + (long long)m * p.co;
+    for (int h = 0; h < 2; ++h) {
+      const int mb = m0 + wm + 32 * h + 4 * lm;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-        if (n < co_end) o[n] = acc[i][j];
+      for (int g = 0; g < 2; ++g) {
+        const int nb = n0 + wn + 16 * g + 4 * ln;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = mb + e;
+          if (m >= p.m) continue;
+          float* o = out + (long long)m * p.co + nb;
+          const float* v = acc[4 * h + e] + 4 * g;
+          if (vec && nb + 3 < co_end) {
+            *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (nb + j < co_end) o[j] = v[j];
+          }
+        }
       }
     }
   }
@@ -483,27 +627,22 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 
 }  // namespace
 
-// x (b, h, w, ci), k (3, 3, ci, co), out (b, h, w, co): contiguous, on the
-// current device, all float32 (is_bf16 == 0) or all bfloat16. vec != 0 (bf16
-// only) needs ci % 8 == 0, co % 8 == 0 and 16-byte aligned x and k. Returns a
-// cudaError_t (0 on success).
-extern "C" int conv3x3_dilated_launch(const void* x, const void* k, void* out, int is_bf16,
-                                      int vec, int b, int h, int w, int ci, int co, int d,
-                                      int tile_co, void* stream) {
+// bf16 x (b, h, w, ci), k (3, 3, ci, co), out (b, h, w, co): contiguous, on
+// the current device. vec != 0 needs ci % 8 == 0, co % 8 == 0 and 16-byte
+// aligned x and k. Returns a cudaError_t (0 on success).
+extern "C" int conv3x3_bf16_launch(const void* x, const void* k, void* out, int vec, int b,
+                                   int h, int w, int ci, int co, int d, int tile_co,
+                                   void* stream) {
   if (b < 1 || h < 1 || w < 1 || ci < 1 || co < 1 || d < 1 || tile_co < 1)
     return (int)cudaErrorInvalidValue;
   const long long m = (long long)b * h * w;
   const long long grid_y = ((long long)co + tile_co - 1) / tile_co;
   if (m > INT_MAX - BM || grid_y > 65535) return (int)cudaErrorInvalidValue;
-  if (vec && (!is_bf16 || ci % 8 != 0 || co % 8 != 0)) return (int)cudaErrorInvalidValue;
+  if (vec && (ci % 8 != 0 || co % 8 != 0)) return (int)cudaErrorInvalidValue;
   const Conv p{b, h, w, ci, co, d, (int)m, tile_co};
   const dim3 grid((unsigned)((m + BM - 1) / BM), (unsigned)grid_y);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (!is_bf16) {
-    conv3x3_f32_kernel<<<grid, NT, 0, s>>>(static_cast<const float*>(x),
-                                           static_cast<const float*>(k),
-                                           static_cast<float*>(out), p);
-  } else if (vec) {
+  if (vec) {
     conv3x3_bf16_kernel<true><<<grid, NT, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
                                                   static_cast<const __nv_bfloat16*>(k),
                                                   static_cast<__nv_bfloat16*>(out), p);
@@ -513,6 +652,52 @@ extern "C" int conv3x3_dilated_launch(const void* x, const void* k, void* out, i
                                                    static_cast<__nv_bfloat16*>(out), p);
   }
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+template <bool VA, bool VB>
+int launch_f32(const float* x, const float* k, float* out, const Conv& p, dim3 grid,
+               cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(conv3x3_f32_kernel<VA, VB>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               F_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  conv3x3_f32_kernel<VA, VB><<<grid, F_NT, F_BYTES, s>>>(x, k, out, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// f32 x (b, h, w, ci), k (3, 3, ci, co), i.e. (9 ci, co) rows, out (b, h, w,
+// co): contiguous, on the current device. vec_a != 0 loads x as 16-byte
+// chunks: it needs ci % 4 == 0 and a 16-byte aligned x. vec_b != 0 needs
+// co % 4 == 0, tile_co % 4 == 0 and a 16-byte aligned k; out is 16-byte
+// aligned. Returns a cudaError_t (0 on success).
+extern "C" int conv3x3_f32_launch(const void* x, const void* k, void* out, int vec_a,
+                                  int vec_b, int b, int h, int w, int ci, int co, int d,
+                                  int tile_co, void* stream) {
+  if (b < 1 || h < 1 || w < 1 || ci < 1 || co < 1 || d < 1 || tile_co < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long m = (long long)b * h * w;
+  const long long grid_y = ((long long)co + tile_co - 1) / tile_co;
+  if (m > INT_MAX - F_BM || grid_y > 65535) return (int)cudaErrorInvalidValue;
+  if (vec_a && ci % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (vec_b && (co % 4 != 0 || tile_co % 4 != 0)) return (int)cudaErrorInvalidValue;
+  if ((vec_a && reinterpret_cast<uintptr_t>(x) % 16 != 0) ||
+      (vec_b && reinterpret_cast<uintptr_t>(k) % 16 != 0) ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const Conv p{b, h, w, ci, co, d, (int)m, tile_co};
+  const dim3 grid((unsigned)((m + F_BM - 1) / F_BM), (unsigned)grid_y);
+  const float* xf = static_cast<const float*>(x);
+  const float* kf = static_cast<const float*>(k);
+  float* of = static_cast<float*>(out);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (vec_a && vec_b) return launch_f32<true, true>(xf, kf, of, p, grid, s);
+  if (vec_a) return launch_f32<true, false>(xf, kf, of, p, grid, s);
+  if (vec_b) return launch_f32<false, true>(xf, kf, of, p, grid, s);
+  return launch_f32<false, false>(xf, kf, of, p, grid, s);
 }
 
 namespace {

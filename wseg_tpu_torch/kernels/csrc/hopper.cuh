@@ -27,6 +27,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
 }
 
+// 4-byte global -> shared copy (through L1); with valid == false it writes
+// 4 zero bytes.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

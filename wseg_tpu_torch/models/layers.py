@@ -13,7 +13,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wseg_tpu_torch.kernels.conv_cuda import conv3x3_dilated_nchw
 from wseg_tpu_torch.parallel.mesh import all_reduce_sum
+from wseg_tpu_torch.utils.profiling import count, span
+
+K2_DILATION = 4  # the dilation of the trunk's b6 / b7 3x3 convs, which K2 was written for
+# b6 has 1024 outputs, b7 2048; at ResNet-101's layer4 (512) cuDNN is faster
+K2_MIN_OUT_CHANNELS = 1024
+# autotuned cuDNN was faster up to 4,608 output pixels, K2 from 8,192 (PERF.md)
+K2_MIN_AUTOTUNED_PIXELS = 8192
 
 
 class BatchNorm2d(nn.Module):
@@ -62,7 +70,7 @@ class BatchNorm2d(nn.Module):
         if self.frozen or not self.training:
             scale = self.weight * torch.rsqrt(self.running_var + self.eps)
             shift = self.bias - self.running_mean * scale
-            return x * scale[:, None, None] + shift[:, None, None]
+            return x * scale.view(-1, 1, 1) + shift.view(-1, 1, 1)
         if self.group is not None or x.shape[0] * x.shape[2] * x.shape[3] == 1:
             return self._moments(x)
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
@@ -129,15 +137,84 @@ class Dropout2d(Dropout):
         return (x.shape[0], x.shape[1], 1, 1)
 
 
+def k2_takes(device_type: str, x_dtype: torch.dtype, w_dtype: torch.dtype, tf32: bool,
+             channels_last: bool, out_channels: int, pixels: int, autotune: bool,
+             kernel_size, stride, padding, dilation, groups: int, bias: bool,
+             padding_mode: str = "zeros") -> bool:
+    """Whether a conv call goes to K2's f32 kernel instead of F.conv2d: on
+    CUDA, float32 input and weight with cuDNN's TF32 disallowed (`tf32` is
+    torch.backends.cudnn.allow_tf32), x channels_last, a 3x3 kernel, stride
+    1, one group, no bias, zero padding equal to the dilation, K2_DILATION,
+    at least K2_MIN_OUT_CHANNELS output channels, and, where cuDNN autotunes
+    (`autotune` is torch.backends.cudnn.benchmark), at least
+    K2_MIN_AUTOTUNED_PIXELS output pixels (B * H * W). Everywhere else cuDNN
+    is as fast or faster: its TF32 tensor-core kernels with TF32 allowed, its
+    heuristic's choice on contiguous x and at 512 output channels (ResNet-101's
+    layer4), its autotuned choice on small outputs (PERF.md); bf16 and every
+    other shape stay on F.conv2d too."""
+    return (device_type == "cuda" and x_dtype == torch.float32 and w_dtype == torch.float32
+            and not tf32 and channels_last and tuple(kernel_size) == (3, 3)
+            and tuple(stride) == (1, 1) and groups == 1 and not bias
+            and padding_mode == "zeros"
+            and tuple(dilation) == tuple(padding) == (K2_DILATION, K2_DILATION)
+            and out_channels >= K2_MIN_OUT_CHANNELS
+            and (not autotune or pixels >= K2_MIN_AUTOTUNED_PIXELS))
+
+
+class _DilatedConvK2(torch.autograd.Function):
+    """Forward on K2 (kernels/conv_cuda.py:conv3x3_dilated_nchw; its plain
+    twin on the CPU); backward through aten's convolution_backward with the
+    conv's own geometry, as F.conv2d's autograd runs it (cuDNN's dgrad and
+    wgrad on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, w, dilation: int):
+        with span("conv.dilated"):
+            out = conv3x3_dilated_nchw(x, w, dilation)
+        count("conv.dil4_k2", 1)
+        count("conv.dil4_flops", 18 * x.shape[0] * x.shape[1] * x.shape[2] * x.shape[3]
+              * w.shape[0])
+        ctx.save_for_backward(x, w)
+        ctx.dilation = dilation
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        d = ctx.dilation
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            grad, x, w, None, [1, 1], [d, d], [d, d], False, [0, 0], 1,
+            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None
+
+
+class DilatedConv2d(nn.Conv2d):
+    """The 3x3 dilation-K2_DILATION conv layer: an nn.Conv2d (same parameters,
+    state_dict keys and init) whose forward runs each call that `k2_takes`
+    accepts on K2 and every other one on F.conv2d. The program counts each call as
+    "conv.dil4_calls" and those K2 ran as "conv.dil4_k2" (utils/profiling.py)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        count("conv.dil4_calls", 1)
+        if k2_takes(x.device.type, x.dtype, self.weight.dtype, torch.backends.cudnn.allow_tf32,
+                    x.is_contiguous(memory_format=torch.channels_last), self.out_channels,
+                    x.shape[0] * x.shape[2] * x.shape[3], torch.backends.cudnn.benchmark,
+                    self.kernel_size, self.stride, self.padding, self.dilation, self.groups,
+                    self.bias is not None, self.padding_mode):
+            return _DilatedConvK2.apply(x, self.weight, self.dilation[0])
+        return super().forward(x)
+
+
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, dilation: int = 1,
          padding: int | None = None, bias: bool = False) -> nn.Conv2d:
     """Conv2d with the JAX package's padding rule: symmetric, by default
     `dilation * (kernel - 1) // 2` ('same' for the dilated kernel); bias-free
-    unless asked."""
+    unless asked. A 3x3 kernel at dilation K2_DILATION is a DilatedConv2d."""
     if padding is None:
         padding = dilation * (kernel - 1) // 2
-    return nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding,
-                     dilation=dilation, bias=bias)
+    cls = DilatedConv2d if kernel == 3 and dilation == K2_DILATION else nn.Conv2d
+    return cls(in_ch, out_ch, kernel, stride=stride, padding=padding, dilation=dilation,
+               bias=bias)
 
 
 def he_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

@@ -3,10 +3,12 @@ wseg_tpu/ops/topk.py).
 
 The stage-1 losses reduce large tensors through the top-k: ECR keeps the top
 20% of 21*128*128 values per sample, adaptive min pooling the bottom quarter
-of the channel max. The k-th order statistic is found exactly by bisecting
-the float bits (32 masked counts), and the sum of the top k is one more
-masked reduction with the ties at the threshold weighted fractionally, so
-exactly k elements count. `torch.topk` would break ties differently.
+of the channel max. The k-th order statistic is found exactly, as the k-th
+largest of order-preserving integer keys (one `torch.kthvalue`: the JAX
+package bisects the key bits instead, 32 masked counts, the same key), and
+the sum of the top k is one masked reduction with the ties at the threshold
+weighted fractionally, so exactly k elements count. `torch.topk` would
+break ties differently.
 
 The float32 bits are mapped to order-preserving signed int32 keys (torch has
 no comparison kernels for uint32): non-negative floats keep their bits,
@@ -29,14 +31,9 @@ def _ordered_keys(x: torch.Tensor) -> torch.Tensor:
 
 
 def _kth_largest_keys(keys: torch.Tensor, k: int) -> torch.Tensor:
-    """keys (N, M) int32. Per-row key of the k-th largest element (exact),
-    bisected bit by bit over the unsigned key space (key + 2^31)."""
-    prefix = torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device)
-    for i in range(32):
-        cand = prefix | (1 << (31 - i))
-        cnt = (keys >= (cand - 2**31).to(torch.int32)[:, None]).sum(dim=1)
-        prefix = torch.where(cnt >= k, cand, prefix)
-    return (prefix - 2**31).to(torch.int32)
+    """keys (N, M) int32, 1 <= k <= M. Per-row key of the k-th largest
+    element (exact)."""
+    return torch.kthvalue(keys, keys.shape[1] - k + 1, dim=1).values
 
 
 def _topk_weights(x: torch.Tensor, k: int) -> torch.Tensor:

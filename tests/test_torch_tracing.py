@@ -121,3 +121,52 @@ def test_train_step_ranges_and_bit_identity():
         assert torch.equal(on[k], off[k]), k
     for (name, a), b in zip(on_model.named_parameters(), off_model.parameters()):
         assert torch.equal(a, b), name
+
+
+@pytest.fixture(scope="module")
+def seg_trainer():
+    from wseg_tpu_torch.seg.config import EXPERIMENTS
+    from wseg_tpu_torch.train.seg import build_seg_trainer
+
+    return build_seg_trainer(EXPERIMENTS["SEAM_deeplabv1_resnet38"], torch.device("cpu"), 0)
+
+
+def _seg_batch():
+    g = torch.Generator().manual_seed(2)
+    label = torch.randint(0, 21, (1, 16, 24), generator=g)
+    label[:, :, 20:] = 255
+    return torch.randn(1, 3, 16, 24, generator=g), label
+
+
+def test_seg_step_ranges_and_bn_counters(seg_trainer):
+    from wseg_tpu_torch.models.layers import BatchNorm2d
+
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+             for m in seg_trainer.model.modules() if isinstance(m, BatchNorm2d)]
+    try:
+        out, ranges, counters = _recorded(lambda: seg_trainer.step(*_seg_batch()))
+    finally:
+        for h in hooks:
+            h.remove()
+    assert torch.isfinite(out["loss"])
+    assert {k: v for k, v in ranges.items() if k.startswith("seg.")} == {
+        "seg.step": 1, "seg.forward": 1, "seg.backbone": 1, "seg.head": 1, "seg.loss": 1,
+        "seg.backward": 1, "seg.optimizer": 1}
+    # 37 trunk BNs and the head's two, all in batch-statistics mode
+    assert ranges["bn.train"] == len(seen) == 39
+    assert counters == {"bn.train_calls": 39, "conv.dil4_calls": 2,
+                        "bn.train_bytes": sum(2 * x.numel() * x.element_size() for x in seen)}
+
+
+def test_frozen_bn_counts_nothing(model):
+    x = torch.randn(1, 3, 24, 32)
+    _, ranges, counters = _recorded(lambda: model(x))
+    assert "bn.train" not in ranges
+    assert not any(k.startswith("bn.") for k in counters)
+
+
+def test_seg_step_counts_nothing_outside_a_recording(seg_trainer):
+    profiling.reset()
+    seg_trainer.step(*_seg_batch())
+    assert profiling.counters == {}

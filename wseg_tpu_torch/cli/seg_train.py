@@ -5,8 +5,12 @@ experiment name with config overrides by flag:
     python -m wseg_tpu_torch.cli.seg_train --exp SEAM_deeplabv1_resnet38 \\
         --data_root VOC2012 --pseudo_gt rw_pngs --backbone_weights contrast.pth
 
-One float32 step a batch (train/seg.py; TF32 off) on the GPU unless
-`--device cpu`. `--backbone_weights` lays a stage-1 file over the backbone
+One float32 step a batch (train/seg.py:build_seg_trainer; TF32 off) on the
+GPU unless `--device cpu`. On the GPU cuDNN autotunes each conv shape once
+(`cudnn.benchmark`), among the first 3 algorithms of its heuristic
+(`cudnn.benchmark_limit` 3): ~17 s at the first step of the SEAM preset
+on an H100, against ~244 s with every algorithm tried, for the same step
+time (PERF.md). `--backbone_weights` lays a stage-1 file over the backbone
 (heads dropped; entries of another shape keep their init). Writes
 `model/<exp>/<model>_<backbone>_<data>_epoch<e>.pth` each epoch (removing the
 previous epoch's) and `..._itr<N>_all.pth` at the end, state_dicts with the
@@ -37,7 +41,9 @@ def collate(samples):
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser()
+    parser = argparse.ArgumentParser(
+        description="Stage-3 DeepLab training, float32 (TF32 off); on the GPU cuDNN "
+        "autotunes each conv shape once among its heuristic's first 3 algorithms.")
     parser.add_argument("--exp", default="SEAM_deeplabv1_resnet38",
                         help="experiment preset name")
     parser.add_argument("--data_root", default="VOC2012")
@@ -123,9 +129,7 @@ def _train(args, cfg, device, world):
         broadcast_module, group_for_batch, rank_of, shard_of, sync,
     )
     from wseg_tpu_torch.seg.dataset import generate_dataset
-    from wseg_tpu_torch.seg.deeplab import generate_net
-    from wseg_tpu_torch.train.optim import PolySGD, param_groups, seg_label_params
-    from wseg_tpu_torch.train.seg import make_seg_train_step
+    from wseg_tpu_torch.train.seg import build_seg_trainer
     from wseg_tpu_torch.utils.checkpoint import (
         backbone_weights, load_train_state, load_weights, merge_state_dict, save_train_state,
         save_weights,
@@ -146,7 +150,8 @@ def _train(args, cfg, device, world):
                         shuffle=cfg.TRAIN_SHUFFLE,
                         shard=shard_of(group))
 
-    model = generate_net(cfg, device=device, generator=torch.Generator().manual_seed(args.seed))
+    trainer = build_seg_trainer(cfg, device, args.seed, group=group)
+    model, optimizer, generator = trainer.model, trainer.optimizer, trainer.generator
     if cfg.MODEL_BACKBONE_WEIGHTS:
         model.load_state_dict(merge_state_dict(
             model.state_dict(), backbone_weights(cfg.MODEL_BACKBONE_WEIGHTS),
@@ -157,10 +162,6 @@ def _train(args, cfg, device, world):
         print(f"resumed from {cfg.TRAIN_CKPT}")
 
     max_itr = cfg.TRAIN_ITERATION
-    optimizer = PolySGD(param_groups(model, seg_label_params(model)), cfg.TRAIN_LR,
-                        cfg.TRAIN_WEIGHT_DECAY, max_itr + 1, power=cfg.TRAIN_POWER,
-                        momentum=cfg.TRAIN_MOMENTUM)
-    generator = torch.Generator(device=device).manual_seed(args.seed)
     itr = cfg.TRAIN_MINEPOCH * (len(dataset) // cfg.TRAIN_BATCHES)
     if args.resume:
         saved = load_train_state(args.resume, model, optimizer, generator)
@@ -171,12 +172,7 @@ def _train(args, cfg, device, world):
                 "min epoch that the file's save message named.")
         print(f"resumed full train state from {args.resume}")
     broadcast_module(model, group)
-    step_fn = make_seg_train_step(model, optimizer, generator=generator,
-                                  with_pred=cfg.TRAIN_TBLOG, group=group)
-    if device.type == "cuda":
-        # one autotune for the one crop shape, as aff_train: cuDNN's heuristic
-        # made stage 2's f32 step 5.3x slower on an H100 (PERF.md)
-        torch.backends.cudnn.benchmark = True
+    step_fn = trainer.step
 
     tblogger = ScalarWriter(cfg.LOG_DIR) if lead else None
     timer = Timer("Seg train started: ")

@@ -47,6 +47,10 @@ class BatchNorm2d(nn.Module):
     output is `bias` up to rounding, and the stored variance takes
     var * n / max(n - 1, 1).
 
+    Train mode runs under the span `bn.train` and counts `bn.train_calls`
+    and `bn.train_bytes`, the least forward traffic of the call: x read
+    once and the output written once (utils/profiling.py).
+
     With `group` set (parallel/mesh.py:bind), train mode takes the moments
     over the group's global batch: one differentiable all_reduce of the
     per-channel (sum x, sum x^2, count), then the JAX package's arithmetic
@@ -71,10 +75,13 @@ class BatchNorm2d(nn.Module):
             scale = self.weight * torch.rsqrt(self.running_var + self.eps)
             shift = self.bias - self.running_mean * scale
             return x * scale.view(-1, 1, 1) + shift.view(-1, 1, 1)
-        if self.group is not None or x.shape[0] * x.shape[2] * x.shape[3] == 1:
-            return self._moments(x)
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            training=True, momentum=self.momentum, eps=self.eps)
+        count("bn.train_calls", 1)
+        count("bn.train_bytes", 2 * x.numel() * x.element_size())
+        with span("bn.train"):
+            if self.group is not None or x.shape[0] * x.shape[2] * x.shape[3] == 1:
+                return self._moments(x)
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                training=True, momentum=self.momentum, eps=self.eps)
 
     def _moments(self, x: torch.Tensor) -> torch.Tensor:
         """Train-mode BN with the JAX package's arithmetic (layers.py:49-59

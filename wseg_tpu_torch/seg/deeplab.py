@@ -34,6 +34,7 @@ from wseg_tpu_torch.ops.resize import resize_bilinear
 from wseg_tpu_torch.seg import xception  # noqa: F401  (registers the "xception" backbone)
 from wseg_tpu_torch.seg.backbones import build_backbone
 from wseg_tpu_torch.seg.config import SegConfig
+from wseg_tpu_torch.utils.profiling import span
 from wseg_tpu_torch.utils.registry import MODELS
 
 
@@ -128,10 +129,11 @@ class _DeepLab(nn.Module):
     """The backbone of `cfg.MODEL_BACKBONE`, a head that `_head` applies to
     its taps, and `cls_conv` (1x1 with bias); the output is the head's
     logits (stride 8; stride 4 for v3+) with `raw_logits`, else their
-    align_corners=True upsample to the input size. `generator` seeds the
-    init (He-normal convs, zero biases, identity BN); it defaults to seed 0.
-    FROM_SCRATCH names the head convs the reference trains from scratch when
-    they are not all of them (seg_label_params)."""
+    align_corners=True upsample to the input size. The backbone runs under
+    the span `seg.backbone`, the rest under `seg.head` (utils/profiling.py).
+    `generator` seeds the init (He-normal convs, zero biases, identity BN);
+    it defaults to seed 0. FROM_SCRATCH names the head convs the reference
+    trains from scratch when they are not all of them (seg_label_params)."""
 
     FROM_SCRATCH: tuple | None = None
 
@@ -162,14 +164,16 @@ class _DeepLab(nn.Module):
     def forward(self, x: torch.Tensor, valid_hw: torch.Tensor | None = None,
                 raw_logits: bool = False) -> torch.Tensor:
         h, w = x.shape[-2:]
-        feats = self.backbone(x, valid_hw)
+        with span("seg.backbone"):
+            feats = self.backbone(x, valid_hw)
 
         def mask_at(i: int):
             return mask_for(valid_hw, (h, w), feats[i].shape[-2:],
                             self.backbone.feature_strides[i], x.dtype)
 
-        out = self.cls_conv(self._head(feats, mask_at))
-        return out if raw_logits else resize_bilinear(out, (h, w), align_corners=True)
+        with span("seg.head"):
+            out = self.cls_conv(self._head(feats, mask_at))
+            return out if raw_logits else resize_bilinear(out, (h, w), align_corners=True)
 
 
 @MODELS.register("deeplabv1")

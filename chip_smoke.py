@@ -113,7 +113,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ResNet-101's layer4 for the record): each output against its plain
      version and F.conv2d (TF32 off), timed beside cuDNN's heuristic and
      autotuned choices (each in a fresh process) with its share of the f32
-     peak; K2's launches in one make_train_step step (4, f32 variant) and in
+     peak; then the backward table of b6 / b7's dilation-4 shapes: K2's input
+     gradient (the f32 variant at dilation -4) and weight gradient
+     (`conv3x3_wgrad_f32_kernel`, at each split 1-4) against cuDNN's dgrad and
+     wgrad (TF32 off), held to them and timed beside them on the heuristic
+     and autotuned (3 algorithms a shape, each mode in a fresh process) with
+     the kernels each ran and the memory each call takes, and the gradients
+     models/layers.py:k2_grads_take gives K2; K2's launches in one
+     make_train_step step (forward 4, and the backward's by the rule) and in
      one f32 CamInferencer.infer_batch with cuDNN's TF32 on (0) and off.
 Stages 2 and 3 run no PCM (stage 2's pair affinities, dense matrix and walk
 are plain PyTorch, as they are plain XLA in the JAX package; the accelerator
@@ -147,7 +154,7 @@ import torch
 from wseg_tpu_torch.infer.cam import CamInferencer, make_fused_msf_fn
 from wseg_tpu_torch.kernels import _build, conv_cuda, pcm_cuda
 from wseg_tpu_torch.models import build_model
-from wseg_tpu_torch.models.layers import Dropout
+from wseg_tpu_torch.models.layers import Dropout, k2_grads_take
 from wseg_tpu_torch.ops.conv import conv3x3_dilated_plain
 from wseg_tpu_torch.ops.pairs import pairwise_affinity_sliced
 from wseg_tpu_torch.ops.pcm import pcm_flat, pcm_flat_bf16
@@ -1457,11 +1464,14 @@ def phase_seg_train_working_size(card: str):
 def stage3_launches(card: str, what: str) -> int:
     """Stage 3 launches no PCM; its convs are cuDNN's (as the JAX nets' are
     XLA's) except the f32 dilation-4 3x3 convs that models/layers.py sends to
-    K2's f32 variant (TF32 is off here). Returns K2's launches."""
+    K2's f32 variant (TF32 is off here), and in training their gradients that
+    it gives K2's f32 variant and its weight-gradient kernel. Returns K2's
+    launches."""
     print(f"{card} | {what} launched PCM {pcm_cuda.launches} and K2 {conv_cuda.launches} "
           f"times ({conv_cuda.variant_launches})", flush=True)
-    if pcm_cuda.launches or conv_cuda.launches != conv_cuda.variant_launches["fma"]:
-        raise SystemExit(f"chip_smoke: {what} launched a port kernel other than K2's f32 one")
+    if pcm_cuda.launches or conv_cuda.launches != (conv_cuda.variant_launches["fma"]
+                                                   + conv_cuda.variant_launches["wgrad"]):
+        raise SystemExit(f"chip_smoke: {what} launched a port kernel other than K2's f32 ones")
     return conv_cuda.launches
 
 
@@ -2405,11 +2415,92 @@ def cudnn_trunk_conv_ms(autotuned: bool) -> dict:
     return out
 
 
-def cudnn_yardstick(autotuned: bool) -> dict:
-    """cudnn_trunk_conv_ms in a fresh process (the yardstick; the port never
-    calls it for these convs)."""
+# (label, x (B, CI, H, W), CO), dilation 4, channels_last: the convs whose
+# backward models/layers.py:k2_grads_take routes (K2 runs their forward):
+# stage 1 and AffinityNet at crop 448 and the 128 view, batch 8 (phases 9,
+# 13, the stage-1 cell), two sizes between, the training CLI's batch 2
+# (phase 10), seg_train's preset at batch 10 (phase 16, the stage-3 cell)
+TRUNK_BWD = [
+    ("b6 crop 448 b8", (8, 512, 56, 56), 1024),
+    ("b7 crop 448 b8", (8, 1024, 56, 56), 2048),
+    ("b6 view 128 b8", (8, 512, 16, 16), 1024),
+    ("b7 view 128 b8", (8, 1024, 16, 16), 2048),
+    ("b6 24x24 b8", (8, 512, 24, 24), 1024),
+    ("b7 24x24 b8", (8, 1024, 24, 24), 2048),
+    ("b6 32x32 b8", (8, 512, 32, 32), 1024),
+    ("b7 32x32 b8", (8, 1024, 32, 32), 2048),
+    ("b6 crop 448 b2", (2, 512, 56, 56), 1024),
+    ("b7 crop 448 b2", (2, 1024, 56, 56), 2048),
+    ("b6 view 128 b2", (2, 512, 16, 16), 1024),
+    ("b7 view 128 b2", (2, 1024, 16, 16), 2048),
+    ("seg v1/R38 b6 crop 448 b10", (10, 512, 56, 56), 1024),
+    ("seg v1/R38 b7 crop 448 b10", (10, 1024, 56, 56), 2048),
+]
+GRAD_MASKS = {"dgrad": [True, False, False], "wgrad": [False, True, False]}
+BWD_RTOL = 1e-4  # of |cuDNN's| + the result's RMS: sums of up to 25,088 products in another order
+
+
+def trunk_bwd_inputs(gen, shape, co):
+    x, w = trunk_conv_inputs(gen, shape, co)
+    g = torch.randn((shape[0], co, *shape[2:]), generator=gen, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    return x, w, g
+
+
+def cudnn_backward(x, w, g, which: str):
+    """cuDNN's dgrad or wgrad of the dilation-4 conv, as F.conv2d's autograd
+    calls it."""
+    out = torch.ops.aten.convolution_backward(g, x, w, None, [1, 1], [4, 4], [4, 4], False,
+                                              [0, 0], 1, GRAD_MASKS[which])
+    return out[0] if which == "dgrad" else out[1]
+
+
+def device_kernels(run) -> str:
+    """The kernels one call of `run` launches, longest first, with their ms."""
+    totals = profile_kernels(run)
+    return "; ".join(f"{k[:72]} {v:.3f}" for k, v in sorted(totals.items(),
+                                                            key=lambda kv: -kv[1])[:3])
+
+
+def cudnn_trunk_bwd(autotuned: bool) -> dict:
+    """{label: {dgrad / wgrad: [ms, s of the first call, MiB of scratch,
+    kernels]}} of cuDNN's backward (f32, TF32 off) on each TRUNK_BWD case, on
+    its heuristic or autotuned among 3 algorithms a shape (seg_train's
+    cudnn.benchmark_limit). Run in a fresh process, as cudnn_trunk_conv_ms."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = autotuned
+    torch.backends.cudnn.benchmark_limit = 3
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    out = {}
+    for label, shape, co in TRUNK_BWD:
+        x, w, g = trunk_bwd_inputs(gen, shape, co)
+        out[label] = {}
+        for which in GRAD_MASKS:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cudnn_backward(x, w, g, which)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            ms = cuda_ms(lambda: cudnn_backward(x, w, g, which), iters=3, warmup=1)
+            torch.cuda.reset_peak_memory_stats()
+            cudnn_backward(x, w, g, which)
+            torch.cuda.synchronize()
+            scratch = (torch.cuda.max_memory_allocated() - base) / 2**20
+            out[label][which] = [ms, first, scratch,
+                                 device_kernels(lambda: cudnn_backward(x, w, g, which))]
+        del x, w, g
+    return out
+
+
+def cudnn_yardstick(autotuned: bool) -> tuple[dict, dict]:
+    """cudnn_trunk_conv_ms, then cudnn_trunk_bwd, in a fresh process (the
+    yardstick; the port never calls it for the convs K2 takes)."""
     code = ("import json, chip_smoke; print('CUDNN ' + json.dumps("
-            f"chip_smoke.cudnn_trunk_conv_ms({autotuned})))")
+            f"[chip_smoke.cudnn_trunk_conv_ms({autotuned}), "
+            f"chip_smoke.cudnn_trunk_bwd({autotuned})]))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=1200, cwd=Path(__file__).resolve().parent)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("CUDNN ")]
@@ -2419,19 +2510,93 @@ def cudnn_yardstick(autotuned: bool) -> dict:
     return json.loads(lines[-1][len("CUDNN "):])
 
 
+def trunk_backward_table(card: str, peak: float, heuristic: dict, autotuned: dict) -> dict:
+    """K2's backward on each TRUNK_BWD case: the input gradient
+    (conv3x3_dilated_dgrad, the f32 kernel at dilation -4) and the weight
+    gradient (conv3x3_dilated_wgrad at each split 1-4 and at wgrad_split's
+    choice), each held against cuDNN's (TF32 off) within BWD_RTOL, the weight
+    gradient repeating bit for bit, timed beside cuDNN's heuristic and
+    autotuned choices (`heuristic`, `autotuned`: cudnn_trunk_bwd from fresh
+    processes) with their kernels and the memory each call takes above its
+    operands; then what models/layers.py:k2_grads_take decides."""
+    torch.backends.cudnn.benchmark = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for label, shape, co in TRUNK_BWD:
+        x, w, g = trunk_bwd_inputs(gen, shape, co)
+        b, ci, h, wd = shape
+        flops = 2.0 * 9 * b * h * wd * ci * co
+        split = conv_cuda.wgrad_split(ci, co, b * h * wd, sms)
+        k2 = {"dgrad": lambda: conv_cuda.conv3x3_dilated_dgrad(g, w, 4),
+              "wgrad": lambda s=split: conv_cuda.conv3x3_dilated_wgrad(x, g, 4, split=s)}
+        row = {"split": split}
+        for which, variant in (("dgrad", "fma"), ("wgrad", "wgrad")):
+            want = cudnn_backward(x, w, g, which)
+            tol = BWD_RTOL * (want.abs() + want.pow(2).mean().sqrt())
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = conv_cuda.variant_launches[variant]
+            got = k2[which]()
+            torch.cuda.synchronize()
+            scratch = (torch.cuda.max_memory_allocated() - base) / 2**20
+            err = float((got - want).abs().max())
+            ok = (bool((got - want).abs().le(tol).all())
+                  and conv_cuda.variant_launches[variant] == before + 1)
+            if which == "dgrad":
+                ok = ok and got.is_contiguous(memory_format=torch.channels_last)
+            else:
+                ok = ok and torch.equal(got, k2["wgrad"]())
+                row["split_ms"] = {}
+                for s in range(1, 5):
+                    ok = ok and bool((k2["wgrad"](s) - want).abs().le(tol).all())
+                    row["split_ms"][s] = cuda_ms(lambda s=s: k2["wgrad"](s))
+            del got, want, tol
+            if not ok:
+                raise SystemExit(f"chip_smoke: K2's {which} disagrees with cuDNN's at {label} "
+                                 f"(max |err| {err:.2e}) or did not repeat")
+            ms = cuda_ms(k2[which])
+            row[which] = {"ms": ms, "tflops": flops / ms / 1e9, "scratch_mib": scratch,
+                          "max_abs_err": err, "heuristic": heuristic[label][which],
+                          "autotuned": autotuned[label][which],
+                          "kernels": device_kernels(k2[which])}
+        row["rule"] = k2_grads_take(b * h * wd)
+        rows[label] = row
+        for which in ("dgrad", "wgrad"):
+            r = row[which]
+            (hm, _, hs, hk), (am, af, as_, ak) = r["heuristic"], r["autotuned"]
+            extra = (f" (split {split}; splits 1-4: "
+                     + ", ".join(f"{v:.3f}" for v in row["split_ms"].values()) + " ms)"
+                     if which == "wgrad" else "")
+            print(f"{card} | K2 backward {label} ({', '.join(map(str, shape))}) -> {co}, "
+                  f"{which}: {r['ms']:.3f} ms{extra}, {r['tflops']:.1f} TFLOP/s "
+                  f"({100 * flops / (r['ms'] / 1e3) / peak:.1f}% of {peak / 1e12:.0f}), "
+                  f"{r['scratch_mib']:.1f} MiB, max |err| vs cuDNN {r['max_abs_err']:.2e} "
+                  f"[{r['kernels']}]; cuDNN heuristic {hm:.3f} ms, {hs:.1f} MiB [{hk}]; "
+                  f"autotuned {am:.3f} ms (first call {af:.1f} s), {as_:.1f} MiB [{ak}]; "
+                  f"rule (dgrad, wgrad on K2): {row['rule']}", flush=True)
+        del x, w, g
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_trunk_convs(card_name: str, card: str) -> dict:
     """K2's f32 variant on the trunk's shapes (TRUNK_CONVS): each output held
     against its plain version and F.conv2d (TF32 off) within phase 3's
     tolerances (CONV_RTOL), timed beside cuDNN's heuristic and autotuned
     choices (each in a fresh process), with its TFLOP/s and share of the f32
-    peak; then the launches of one make_train_step step (f32, TF32 off, crop
-    448, batch 8, NHWC-view images as the CLI feeds them: 4 of the f32
-    variant) and of one CamInferencer.infer_batch in f32 with cuDNN's TF32 on
-    (contrast_infer's setting: none) and off (b6 and b7 at each scale)."""
+    peak; then their backward (trunk_backward_table); then the launches of
+    one make_train_step step (f32, TF32 off, crop 448, batch 8, NHWC-view
+    images as the CLI feeds them: 4 of the f32 variant in the forward, and
+    the gradients k2_grads_take gives K2 in the backward) and of one
+    CamInferencer.infer_batch in f32 with cuDNN's TF32 on (contrast_infer's
+    setting: none) and off (b6 and b7 at each scale)."""
     import torch.nn.functional as F
 
     part, peak, _ = peaks(card_name)
-    heuristic, autotuned = cudnn_yardstick(False), cudnn_yardstick(True)
+    (heuristic, heuristic_bwd), (autotuned, autotuned_bwd) = (cudnn_yardstick(False),
+                                                              cudnn_yardstick(True))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
     rows = {}
     for name, shape, co, d in TRUNK_CONVS:
@@ -2466,6 +2631,7 @@ def phase_trunk_convs(card_name: str, card: str) -> dict:
               f"F.conv2d {err:.2e}", flush=True)
         del x, w
     torch.cuda.empty_cache()
+    backward = trunk_backward_table(card, peak, heuristic_bwd, autotuned_bwd)
 
     launches = {}
     torch.backends.cudnn.benchmark = False  # as contrast_train and contrast_infer run
@@ -2510,11 +2676,17 @@ def phase_trunk_convs(card_name: str, card: str) -> dict:
     train = launches["make_train_step, f32, TF32 off (phase 24)"]
     cam_on = launches["CamInferencer.infer_batch, f32, cuDNN TF32 on (phase 24)"]
     cam_off = launches["CamInferencer.infer_batch, f32, cuDNN TF32 off (phase 24)"]
-    if train != {"wgmma": 0, "mma_sync": 0, "fma": 4} or any(cam_on.values()) \
+    # b6 and b7 at crop 448 and at the 128 view: forward on K2, each gradient
+    # where k2_grads_take gives it
+    grads = [k2_grads_take(BATCH * side * side) for side in (56, 56, 16, 16)]
+    want = {"wgmma": 0, "mma_sync": 0, "fma": 4 + sum(x for x, _ in grads),
+            "wgrad": sum(w for _, w in grads)}
+    if train != want or any(cam_on.values()) \
             or not cam_off["fma"] or cam_off["fma"] != sum(cam_off.values()):
         raise SystemExit("chip_smoke: K2's f32 variant did not run where models/layers.py "
                          "routes the dilation-4 convs, or ran where it should not")
-    return {"shapes": rows, "launches": {k: sum(v.values()) for k, v in launches.items()}}
+    return {"shapes": rows, "backward": backward,
+            "launches": {k: sum(v.values()) for k, v in launches.items()}}
 
 
 def timed(name: str, fn, *args):
@@ -2566,6 +2738,7 @@ def main() -> int:
     conv_row["launches"] = sum(conv_by_path.values())
     conv_row["launches_by_path"] = conv_by_path
     conv_row["f32_trunk"] = trunk["shapes"]
+    conv_row["f32_trunk_backward"] = trunk["backward"]
     print(f"[time] total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [pcm_row, conv_row]}))
     print(card)

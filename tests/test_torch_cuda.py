@@ -285,6 +285,86 @@ def test_dilated_layer_takes_k2_by_the_rule(cuda):
     assert conv_cuda.launches == before + 1
 
 
+def _close_to_rms(got, want):
+    """Within rtol 1e-4 and atol 1e-4 of want's RMS: a gradient of the
+    dilation-4 conv summed in another order than cuDNN's (see
+    test_k2_backward_matches_cudnn)."""
+    rms = float(want.pow(2).mean().sqrt())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * rms)
+
+
+# (x (B, CI, H, W), CO): b7's and b6's crop-448 training shapes, and a ragged
+# one (CI and CO no multiple of 4: element-wise loads; a map narrower than the
+# halo)
+BWD_CASES = [((8, 1024, 56, 56), 2048), ((8, 512, 56, 56), 1024), ((2, 37, 5, 7), 150)]
+
+
+@pytest.mark.parametrize("shape,co", BWD_CASES)
+def test_k2_backward_matches_cudnn(cuda, shape, co):
+    """K2's input gradient (the f32 kernel at dilation -4) and weight
+    gradient (conv3x3_wgrad_f32_kernel at wgrad_split's split and at 1-3)
+    against cuDNN's dgrad and wgrad in f32 with TF32 off. Each entry is a sum
+    of up to 9 x 2048 (dgrad) or 25,088 (wgrad) products taken in another
+    order, whose rounding grows with the sum's running magnitude, about the
+    result's RMS: atol 1e-4 of that RMS (the largest gap seen on the card,
+    chip_smoke.py phase 24, was 4e-5 of it), rtol 1e-4. The weight gradient
+    repeats bit for bit, each call launching one kernel of its variant (a
+    split's adding pass counts with it)."""
+    gen = torch.Generator(device=cuda).manual_seed(co)
+    x = torch.randn(shape, generator=gen, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn((co, shape[1], 3, 3), generator=gen, device=cuda) / (9 * shape[1]) ** 0.5
+    g = torch.randn((shape[0], co, *shape[2:]), generator=gen, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    want_x, want_w, _ = torch.ops.aten.convolution_backward(
+        g, x, w, None, [1, 1], [4, 4], [4, 4], False, [0, 0], 1, [True, True, False])
+    close = _close_to_rms
+    fma, wgrad = conv_cuda.variant_launches["fma"], conv_cuda.variant_launches["wgrad"]
+    got_x = conv_cuda.conv3x3_dilated_dgrad(g, w, 4)
+    got_w = conv_cuda.conv3x3_dilated_wgrad(x, g, 4)
+    torch.cuda.synchronize()
+    assert (conv_cuda.variant_launches["fma"], conv_cuda.variant_launches["wgrad"]) == \
+        (fma + 1, wgrad + 1)
+    assert got_x.is_contiguous(memory_format=torch.channels_last)
+    assert got_w.shape == w.shape and got_w.is_contiguous()
+    close(got_x, want_x)
+    close(got_w, want_w)
+    assert torch.equal(conv_cuda.conv3x3_dilated_wgrad(x, g, 4), got_w)
+    for split in (1, 2, 3):
+        once = conv_cuda.conv3x3_dilated_wgrad(x, g, 4, split=split)
+        close(once, want_w)
+        assert torch.equal(conv_cuda.conv3x3_dilated_wgrad(x, g, 4, split=split), once)
+    # contiguous (NCHW) operands are copied to NHWC first
+    close(conv_cuda.conv3x3_dilated_dgrad(g.contiguous(), w, 4), want_x)
+    close(conv_cuda.conv3x3_dilated_wgrad(x.contiguous(), g.contiguous(), 4), want_w)
+
+
+def test_dilated_layer_backward_takes_k2_by_the_rule(cuda):
+    """A dilation-4 layer on K2 at K2_MIN_DGRAD_PIXELS output pixels runs
+    both gradients on K2 (the f32 variant once more, the weight-gradient
+    kernel once), under K2_MIN_WGRAD_PIXELS neither, and its gradients are
+    F.conv2d's either way (to the RMS, as in test_k2_backward_matches_cudnn:
+    each weight-gradient entry is a sum over 8192 pixels)."""
+    import torch.nn.functional as F
+    from wseg_tpu_torch.models import layers
+
+    layer = layers.conv(64, 1024, 3, dilation=4).to(cuda)
+    for (h, w), want in (((64, 64), (2, 1)), ((16, 24), (1, 0))):
+        x = torch.randn(2, 64, h, w, device=cuda).contiguous(memory_format=torch.channels_last)
+        assert layers.k2_grads_take(2 * h * w) == (want == (2, 1), want == (2, 1))
+        x.requires_grad_(True)
+        before = (conv_cuda.variant_launches["fma"], conv_cuda.variant_launches["wgrad"])
+        out = layer(x)
+        g = torch.randn_like(out)
+        got = torch.autograd.grad(out, (x, layer.weight), g)
+        torch.cuda.synchronize()
+        assert (conv_cuda.variant_launches["fma"] - before[0],
+                conv_cuda.variant_launches["wgrad"] - before[1]) == want
+        ref = F.conv2d(x, layer.weight, padding=4, dilation=4)
+        for a, b in zip(got, torch.autograd.grad(ref, (x, layer.weight), g)):
+            _close_to_rms(a, b)
+
+
 def test_conv_kernel_rejects_unsupported(cuda):
     x = torch.zeros(1, 8, 8, 4, device=cuda)
     k = torch.zeros(3, 3, 4, 16, device=cuda)

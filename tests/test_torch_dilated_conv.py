@@ -11,7 +11,8 @@ from torch import nn
 
 from wseg_tpu_torch.kernels import conv_cuda
 from wseg_tpu_torch.models import layers
-from wseg_tpu_torch.models.layers import DilatedConv2d, _DilatedConvK2, conv, k2_takes
+from wseg_tpu_torch.models.layers import (DilatedConv2d, _DilatedConvK2, conv, k2_grads_take,
+                                           k2_takes)
 from wseg_tpu_torch.models.resnet38 import ResNet38
 from wseg_tpu_torch.utils import profiling
 
@@ -43,6 +44,20 @@ HOLDS = dict(device_type="cuda", x_dtype=torch.float32, w_dtype=torch.float32, t
 ])
 def test_k2_takes(change, want):
     assert k2_takes(**{**HOLDS, **change}) is want
+
+
+@pytest.mark.parametrize("pixels,want", [
+    (8 * 56 * 56, (True, True)),      # b6 / b7 at crop 448, batch 8 (stage 1)
+    (10 * 56 * 56, (True, True)),     # seg_train's batch 10
+    (layers.K2_MIN_DGRAD_PIXELS, (True, True)),
+    (layers.K2_MIN_DGRAD_PIXELS - 1, (False, True)),
+    (2 * 56 * 56, (False, True)),     # the training CLI's batch 2
+    (layers.K2_MIN_WGRAD_PIXELS, (False, True)),
+    (layers.K2_MIN_WGRAD_PIXELS - 1, (False, False)),
+    (8 * 16 * 16, (False, False)),    # the 128 view
+])
+def test_k2_grads_take(pixels, want):
+    assert k2_grads_take(pixels) == want
 
 
 @pytest.mark.parametrize("channels_last", [False, True])
@@ -96,6 +111,35 @@ def test_counters_under_a_profiler():
     torch.testing.assert_close(out, F.conv2d(x, layer.weight, padding=4, dilation=4))
 
 
+@pytest.mark.parametrize("needs,pixels,want", [
+    ((True, True), 2 * 6 * 7, (2, 0)),
+    ((True, False), 2 * 6 * 7, (1, 0)),
+    ((False, True), 2 * 6 * 7, (1, 0)),
+    ((True, True), layers.K2_MIN_DGRAD_PIXELS, (2, 2)),
+    ((True, True), layers.K2_MIN_WGRAD_PIXELS, (2, 1)),
+    ((False, True), layers.K2_MIN_WGRAD_PIXELS, (1, 1)),
+])
+def test_backward_counters_under_a_profiler(monkeypatch, needs, pixels, want):
+    """The backward counts each gradient asked for as conv.dil4_bwd_grads and
+    each that k2_grads_take gives K2 as conv.dil4_bwd_k2 (its output pixels
+    stood in for by `pixels`); the gradients are autograd's of F.conv2d
+    whichever way they ran."""
+    monkeypatch.setattr(layers, "k2_grads_take", lambda _: k2_grads_take(pixels))
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 3, 6, 7, generator=gen, requires_grad=needs[0])
+    w = torch.randn(5, 3, 3, 3, generator=gen, requires_grad=needs[1])
+    leaves = [t for t in (x, w) if t.requires_grad]
+    profiling.reset()
+    with torch.profiler.profile():
+        got = torch.autograd.grad(_DilatedConvK2.apply(x, w, 4).square().sum(), leaves)
+    counted = dict(profiling.counters)
+    profiling.reset()
+    assert (counted["conv.dil4_bwd_grads"], counted["conv.dil4_bwd_k2"]) == want
+    wanted = torch.autograd.grad(F.conv2d(x, w, padding=4, dilation=4).square().sum(), leaves)
+    for a, b in zip(got, wanted):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
 def test_conv_returns_the_dilated_layer_for_dilation_4_only():
     assert type(conv(8, 16, 3, dilation=4)) is DilatedConv2d
     assert type(conv(8, 16, 3, dilation=2)) is nn.Conv2d
@@ -121,22 +165,57 @@ def test_resnet38_state_dict_is_unchanged(monkeypatch):
     net.load_state_dict(plain.state_dict(), strict=True)
 
 
+# (x (B, CI, H, W), CO, dtype): f32 at 7 x 9; float64 at 5 x 7, a map
+# narrower than dilation 4's halo on both sides, with channels that are no
+# multiple of 4
+ENTRY_CASES = [((2, 5, 7, 9), 6, torch.float32), ((2, 3, 5, 7), 5, torch.float64)]
+
+
+@pytest.mark.parametrize("entry", ["forward", "dgrad", "wgrad"])
 @pytest.mark.parametrize("channels_last", [False, True])
-def test_nchw_entry_cpu_route(channels_last):
-    """conv3x3_dilated_nchw on the CPU is the plain twin: F.conv2d's result,
-    channels_last, no launch; bf16 and bad shapes raise."""
-    x = torch.randn(2, 5, 7, 9)
+@pytest.mark.parametrize("shape,co,dtype", ENTRY_CASES)
+def test_nchw_entry_cpu_route(entry, channels_last, shape, co, dtype):
+    """conv3x3_dilated_nchw and its gradients' entry points on the CPU are
+    the plain twins: F.conv2d's output and autograd's input and weight
+    gradients of it, with no launch; the output and the input gradient are
+    channels_last, the weight gradient (CO, CI, 3, 3); bf16 and bad shapes
+    raise."""
+    gen = torch.Generator().manual_seed(co)
+    x = torch.randn(shape, generator=gen, dtype=dtype)
+    w = torch.randn(co, shape[1], 3, 3, generator=gen, dtype=dtype)
+    g = torch.randn(shape[0], co, *shape[2:], generator=gen, dtype=dtype)
     if channels_last:
-        x = x.contiguous(memory_format=torch.channels_last)
-    w = torch.randn(6, 5, 3, 3)
+        x, g = (t.contiguous(memory_format=torch.channels_last) for t in (x, g))
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    want_out = F.conv2d(x, w, padding=4, dilation=4)
+    want = dict(zip(("forward", "dgrad", "wgrad"),
+                    (want_out, *torch.autograd.grad(want_out, (x, w), g))))[entry]
+    x, w = x.detach(), w.detach()
+    call = {"forward": lambda a, b, d=4: conv_cuda.conv3x3_dilated_nchw(a, b, d),
+            "dgrad": lambda a, b, d=4: conv_cuda.conv3x3_dilated_dgrad(g, b, d),
+            "wgrad": lambda a, b, d=4: conv_cuda.conv3x3_dilated_wgrad(a, g, d)}[entry]
     before = conv_cuda.launches
-    got = conv_cuda.conv3x3_dilated_nchw(x, w, 4)
+    got = call(x, w)
     assert conv_cuda.launches == before
-    torch.testing.assert_close(got, F.conv2d(x, w, padding=4, dilation=4), rtol=1e-5, atol=1e-5)
-    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if entry == "wgrad":
+        assert got.shape == w.shape and got.is_contiguous()
+    else:
+        assert got.is_contiguous(memory_format=torch.channels_last)
     with pytest.raises(TypeError):
-        conv_cuda.conv3x3_dilated_nchw(x.bfloat16(), w.bfloat16())
+        call(x.bfloat16(), w.bfloat16())
+    with pytest.raises(ValueError):  # CI, CO or the batch disagree
+        call(*{"forward": (x, w[:, :2]), "dgrad": (x, w[:2]), "wgrad": (x[:1], w)}[entry])
     with pytest.raises(ValueError):
-        conv_cuda.conv3x3_dilated_nchw(x, w[:, :4])
-    with pytest.raises(ValueError):
-        conv_cuda.conv3x3_dilated_nchw(x, w, dilation=0)
+        call(x, w, 0)
+
+
+def test_function_gradcheck_on_cpu():
+    """_DilatedConvK2's forward and backward on the CPU (the plain twins)
+    pass gradcheck in float64 at a map narrower than the halo."""
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 3, 5, 7, generator=gen, dtype=torch.float64, requires_grad=True)
+    w = torch.randn(5, 3, 3, 3, generator=gen, dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(lambda a, b: _DilatedConvK2.apply(a, b, 4), (x, w))

@@ -28,6 +28,20 @@ def test_conv_variant_refuses_other_dtypes(dtype):
         conv_cuda.conv_variant(dtype, 64, 64)
 
 
+@pytest.mark.parametrize("ci,co,pixels,want", [
+    (1024, 2048, 8 * 56 * 56, 1),   # b7: 1152 tiles fill four waves of 264 slots
+    (1024, 2048, 8 * 16 * 16, 1),
+    (512, 1024, 8 * 56 * 56, 4),    # b6: 288 tiles, the last wave fullest at 4
+    (512, 1024, 10 * 56 * 56, 4),
+    (512, 1024, 8 * 16 * 16, 2),    # 128 chunks of 16 pixels: at most 2 ranges of 64
+    (512, 1024, 2 * 16 * 16, 1),    # 32 chunks: no split
+    (37, 150, 2 * 5 * 7, 1),
+    (512, 512, 4 * 64 * 64, 3),     # 144 tiles: 432 fill 82% of two waves of 264
+])
+def test_wgrad_split(ci, co, pixels, want):
+    assert conv_cuda.wgrad_split(ci, co, pixels, 132) == want
+
+
 @pytest.mark.parametrize("h,w,want", [
     (96, 128, (1, 128)),   # b7's maps: one row of 128
     (48, 64, (2, 64)),     # the probe's: 2 x 64

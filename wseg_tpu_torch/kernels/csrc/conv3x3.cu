@@ -46,7 +46,9 @@
 //     by operations at 67 TFLOP/s (b7's crop-448 training shape, 8 x 56 x 56,
 //     1024 -> 2048: 947 GFLOP, 14.1 ms, against 0.38 GB of operands and
 //     output). NHWC; a 4-stage cp.async ring, one barrier a chunk, 128 x
-//     128 block tiles of 8 x 8 outputs a thread (its own note below).
+//     128 block tiles of 8 x 8 outputs a thread (its own note below). Its
+//     input gradient is the same kernel at dilation -d; its weight gradient
+//     is conv3x3_wgrad_f32_kernel, of the same design (its own note below).
 //
 // Tails: H and W (the halo), CI and CO are zero-filled on load and masked on
 // store; nothing is padded in device memory. `tile_co` output channels go to
@@ -447,6 +449,196 @@ conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ k,
   }
 }
 
+// ---- conv3x3_wgrad_f32_kernel ----------------------------------------------
+//
+// The weight gradient of conv3x3_f32_kernel's conv, in exact f32:
+//   dW[co, ci, ty, tx] = sum over pixels p of x[p + ((ty-1)d, (tx-1)d), ci] * g[p, co]
+// with g the output's gradient, both NHWC. It replaces no TPU kernel (the
+// JAX package leaves K2's gradient to XLA); it was added because cuDNN's f32
+// weight gradient of the trunk's dilation-4 convs runs at ~35 TFLOP/s on an
+// H100, where this design reaches ~46 (PERF.md). The input gradient needs no
+// kernel of its own: it is conv3x3_f32_kernel at dilation -d (the taps'
+// offsets negated, the kernel rotated 180 degrees) on the kernel's (3, 3,
+// CO, CI) rows.
+//
+// GEMM view: M = 9 taps x CI, N = CO, K = the B*H*W pixels. Bound:
+// operations, 2 * 9 * CI * CO * B * H * W at 67 TFLOP/s (b7's crop-448
+// training shape: 947 GFLOP, 14.1 ms, against 0.31 GB of operands and
+// 75.5 MB of output), so the design is the forward's, fed the same way: a
+// block tile of 128 channels of one tap x 128 output channels, K chunks of 16
+// pixels in a 4-stage cp.async ring with one barrier a chunk, and the
+// forward's 8 x 8 FMA micro-tile (f32_chunk). Both operands are NHWC, so a
+// chunk's A rows (16 pixels, shifted by the tap, 128 channels each) and B
+// rows (the same 16 pixels' 128 output channels) each load as 16-byte
+// cp.async along the channels and land as [k][m] and [k][n]: no transpose.
+// src-size 0 zero-fills the halo, the pixel tail and the channel tails.
+// Each thread tracks its two pixel rows' (b, y, x), advanced a chunk at a
+// time, so no division runs in the loop. The epilogue writes dW in its
+// torch layout, (CO, CI, 3, 3), straight from the registers.
+//
+// Wave quantisation: the tiles are 9 ceil(CI/128) x ceil(CO/128) (b6 at crop
+// 448: 288, against 264 block slots on 132 SMs). `split` > 1 cuts the pixel
+// reduction into that many equal ranges (blockIdx.z): range 0 writes dW, the
+// others write partials, and a second pass adds them to dW in range order,
+// so a run repeats bit for bit.
+
+constexpr int W_BK = 16;                  // K chunk: pixels
+constexpr int W_A = W_BK * F_AST;         // floats of A a stage, [k][m]
+constexpr int W_STAGE = W_A + W_BK * F_BN;  // floats a stage, A then B
+constexpr int W_BYTES = F_STAGES * W_STAGE * 4;
+
+struct Wgrad {
+  int h, w, ci, co, d, pixels, ci_tiles, chunks;  // chunks: K chunks of one range
+};
+
+// Stage one K chunk: rows r and r + 8 (r = tid / 32) of A (x at the row's
+// pixel shifted by (oy, ox), channels ci0 + 4 (tid % 32) .. + 3) and of B (g
+// at the pixel, output channels n0 + 4 (tid % 32) .. + 3). A pixel at or past
+// `end` is zero in both.
+template <bool VA, bool VB>
+__device__ __forceinline__ void wgrad_load(float* a_s, float* b_s, const float* __restrict__ x,
+                                           const float* __restrict__ g, const Wgrad& p,
+                                           const int (&pix)[2], const int (&pb)[2],
+                                           const int (&py)[2], const int (&px)[2], int end,
+                                           int oy, int ox, int ci0, int n0, int tid) {
+  const int r = tid >> 5, c = (tid & 31) * 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = pix[i] < end;
+    const int sy = py[i] + oy, sx = px[i] + ox;
+    const bool ok_a = in && sy >= 0 && sy < p.h && sx >= 0 && sx < p.w;
+    const float* src_a = x + ((((long long)pb[i] * p.h + sy) * p.w + sx) * p.ci + ci0 + c);
+    float* dst_a = a_s + (r + 8 * i) * F_AST + c;
+    const float* src_b = g + ((long long)pix[i] * p.co + n0 + c);
+    float* dst_b = b_s + (r + 8 * i) * F_BN + c;
+    if (VA) {
+      const bool ok = ok_a && ci0 + c < p.ci;
+      cp_async16(dst_a, ok ? src_a : x, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = ok_a && ci0 + c + e < p.ci;
+        cp_async4(dst_a + e, ok ? src_a + e : x, ok);
+      }
+    }
+    if (VB) {
+      const bool ok = in && n0 + c < p.co;
+      cp_async16(dst_b, ok ? src_b : g, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = in && n0 + c + e < p.co;
+        cp_async4(dst_b + e, ok ? src_b + e : g, ok);
+      }
+    }
+  }
+}
+
+// The thread's two pixel rows, one chunk on.
+__device__ __forceinline__ void wgrad_advance(const Wgrad& p, int (&pix)[2], int (&pb)[2],
+                                              int (&py)[2], int (&px)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    pix[i] += W_BK;
+    px[i] += W_BK;
+    while (px[i] >= p.w) {
+      px[i] -= p.w;
+      if (++py[i] == p.h) {
+        py[i] = 0;
+        ++pb[i];
+      }
+    }
+  }
+}
+
+// Block (tap ci-tile, co tile, range): blockIdx.x = tap * ci_tiles + ci tile.
+template <bool VA, bool VB>
+__global__ void __launch_bounds__(F_NT, F_MIN_BLOCKS)
+conv3x3_wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                         float* __restrict__ dw, float* __restrict__ parts, Wgrad p) {
+  extern __shared__ __align__(16) float wgrad_ring[];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
+  const int lm = lane & 7, ln = lane >> 3;
+  const int tap = blockIdx.x / p.ci_tiles;
+  const int ci0 = (blockIdx.x - tap * p.ci_tiles) * F_BM;
+  const int n0 = blockIdx.y * F_BN;
+  const int oy = (tap / 3 - 1) * p.d, ox = (tap % 3 - 1) * p.d;
+  const long long begin = (long long)blockIdx.z * p.chunks * W_BK;
+  const int end = (int)min((long long)p.pixels, begin + (long long)p.chunks * W_BK);
+  const int kt_total = end > begin ? (int)((end - begin + W_BK - 1) / W_BK) : 0;
+
+  int pix[2], pb[2], py[2], px[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    pix[i] = (int)begin + (tid >> 5) + 8 * i;
+    px[i] = pix[i] % p.w;
+    const int t = pix[i] / p.w;
+    py[i] = t % p.h;
+    pb[i] = t / p.h;
+  }
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < F_STAGES - 1; ++s) {
+    if (s < kt_total) {
+      wgrad_load<VA, VB>(wgrad_ring + s * W_STAGE, wgrad_ring + s * W_STAGE + W_A, x, g, p, pix,
+                         pb, py, px, end, oy, ox, ci0, n0, tid);
+      wgrad_advance(p, pix, pb, py, px);
+    }
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < kt_total; ++kt) {
+    cp_async_wait<F_STAGES - 2>();  // chunk kt has landed (this thread's copies) ...
+    __syncthreads();                // ... everyone's; chunk kt - 1 has been read
+    const int next = kt + F_STAGES - 1;
+    if (next < kt_total) {
+      float* st = wgrad_ring + (next % F_STAGES) * W_STAGE;
+      wgrad_load<VA, VB>(st, st + W_A, x, g, p, pix, pb, py, px, end, oy, ox, ci0, n0, tid);
+      wgrad_advance(p, pix, pb, py, px);
+    }
+    cp_async_commit();
+    const float* st = wgrad_ring + (kt % F_STAGES) * W_STAGE;
+    f32_chunk(acc, st, st + W_A, wm, wn, lm, ln);
+  }
+  cp_async_wait<0>();
+
+  // acc[4 h + e][4 g + j]: channel ci0 + wm + 32 h + 4 lm + e, output
+  // channel n0 + wn + 16 g + 4 ln + j; dW[co][ci][tap]
+  float* out = blockIdx.z == 0 ? dw : parts + (long long)(blockIdx.z - 1) * p.co * p.ci * 9;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ci = ci0 + wm + 32 * h + 4 * lm + e;
+      if (ci >= p.ci) continue;
+#pragma unroll
+      for (int gg = 0; gg < 2; ++gg)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int co = n0 + wn + 16 * gg + 4 * ln + j;
+          if (co < p.co) out[((long long)co * p.ci + ci) * 9 + tap] = acc[4 * h + e][4 * gg + j];
+        }
+    }
+}
+
+// dw[i] += parts[0][i] + parts[1][i] + ..., in that order.
+__global__ void wgrad_sum_kernel(float* __restrict__ dw, const float* __restrict__ parts,
+                                 long long n, int nparts) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float v = dw[i];
+    for (int s = 0; s < nparts; ++s) v += parts[s * n + i];
+    dw[i] = v;
+  }
+}
+
 // ---- conv3x3_wgmma_kernel ------------------------------------------------
 
 constexpr int WG_BM = 128;          // output pixels per tile (th x tw)
@@ -673,11 +865,13 @@ int launch_f32(const float* x, const float* k, float* out, const Conv& p, dim3 g
 // co): contiguous, on the current device. vec_a != 0 loads x as 16-byte
 // chunks: it needs ci % 4 == 0 and a 16-byte aligned x. vec_b != 0 needs
 // co % 4 == 0, tile_co % 4 == 0 and a 16-byte aligned k; out is 16-byte
-// aligned. Returns a cudaError_t (0 on success).
+// aligned. d may be negative: tap (dy, dx) then reads x at ((dy-1)d,
+// (dx-1)d), the conv with k rotated 180 degrees (the input gradient's conv).
+// Returns a cudaError_t (0 on success).
 extern "C" int conv3x3_f32_launch(const void* x, const void* k, void* out, int vec_a,
                                   int vec_b, int b, int h, int w, int ci, int co, int d,
                                   int tile_co, void* stream) {
-  if (b < 1 || h < 1 || w < 1 || ci < 1 || co < 1 || d < 1 || tile_co < 1)
+  if (b < 1 || h < 1 || w < 1 || ci < 1 || co < 1 || d == 0 || tile_co < 1)
     return (int)cudaErrorInvalidValue;
   const long long m = (long long)b * h * w;
   const long long grid_y = ((long long)co + tile_co - 1) / tile_co;
@@ -698,6 +892,61 @@ extern "C" int conv3x3_f32_launch(const void* x, const void* k, void* out, int v
   if (vec_a) return launch_f32<true, false>(xf, kf, of, p, grid, s);
   if (vec_b) return launch_f32<false, true>(xf, kf, of, p, grid, s);
   return launch_f32<false, false>(xf, kf, of, p, grid, s);
+}
+
+namespace {
+
+template <bool VA, bool VB>
+int launch_wgrad(const float* x, const float* g, float* dw, float* parts, const Wgrad& p,
+                 dim3 grid, cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(conv3x3_wgrad_f32_kernel<VA, VB>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               W_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  conv3x3_wgrad_f32_kernel<VA, VB><<<grid, F_NT, W_BYTES, s>>>(x, g, dw, parts, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// f32 x (b, h, w, ci), g (b, h, w, co) -- the output's gradient --, dw (co,
+// ci, 3, 3): contiguous, on the current device. The pixel reduction is cut
+// into `split` ranges; with split > 1, parts holds (split - 1) x co x ci x 9
+// floats of scratch. vec_a != 0 loads x as 16-byte chunks: it needs ci % 4 ==
+// 0 and a 16-byte aligned x; vec_b != 0 the same of g with co. Returns a
+// cudaError_t (0 on success).
+extern "C" int conv3x3_wgrad_f32_launch(const void* x, const void* g, void* dw, void* parts,
+                                        int vec_a, int vec_b, int b, int h, int w, int ci,
+                                        int co, int d, int split, void* stream) {
+  if (b < 1 || h < 1 || w < 1 || ci < 1 || co < 1 || d < 1 || split < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long m = (long long)b * h * w;
+  const long long ci_tiles = (ci + F_BM - 1) / F_BM, co_tiles = (co + F_BN - 1) / F_BN;
+  if (m > INT_MAX - 4 * W_BK || 9 * ci_tiles > INT_MAX || co_tiles > 65535 || split > 65535)
+    return (int)cudaErrorInvalidValue;
+  if ((vec_a && ci % 4 != 0) || (vec_b && co % 4 != 0) || (split > 1 && parts == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((vec_a && reinterpret_cast<uintptr_t>(x) % 16 != 0) ||
+      (vec_b && reinterpret_cast<uintptr_t>(g) % 16 != 0))
+    return (int)cudaErrorMisalignedAddress;
+  const long long chunks = (m + W_BK - 1) / W_BK;
+  const Wgrad p{h, w, ci, co, d, (int)m, (int)ci_tiles, (int)((chunks + split - 1) / split)};
+  const dim3 grid((unsigned)(9 * ci_tiles), (unsigned)co_tiles, (unsigned)split);
+  const float* xf = static_cast<const float*>(x);
+  const float* gf = static_cast<const float*>(g);
+  float* dwf = static_cast<float*>(dw);
+  float* pf = static_cast<float*>(parts);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  int err;
+  if (vec_a && vec_b) err = launch_wgrad<true, true>(xf, gf, dwf, pf, p, grid, s);
+  else if (vec_a) err = launch_wgrad<true, false>(xf, gf, dwf, pf, p, grid, s);
+  else if (vec_b) err = launch_wgrad<false, true>(xf, gf, dwf, pf, p, grid, s);
+  else err = launch_wgrad<false, false>(xf, gf, dwf, pf, p, grid, s);
+  if (err != 0 || split == 1) return err;
+  const long long n = (long long)co * ci * 9;
+  const long long blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
+  wgrad_sum_kernel<<<(unsigned)blocks, 256, 0, s>>>(dwf, pf, n, split - 1);
+  return (int)cudaGetLastError();
 }
 
 namespace {

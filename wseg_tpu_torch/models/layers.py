@@ -13,7 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from wseg_tpu_torch.kernels.conv_cuda import conv3x3_dilated_nchw
+from wseg_tpu_torch.kernels.conv_cuda import (conv3x3_dilated_dgrad, conv3x3_dilated_nchw,
+                                               conv3x3_dilated_wgrad)
 from wseg_tpu_torch.parallel.mesh import all_reduce_sum
 from wseg_tpu_torch.utils.profiling import count, span
 
@@ -22,6 +23,12 @@ K2_DILATION = 4  # the dilation of the trunk's b6 / b7 3x3 convs, which K2 was w
 K2_MIN_OUT_CHANNELS = 1024
 # autotuned cuDNN was faster up to 4,608 output pixels, K2 from 8,192 (PERF.md)
 K2_MIN_AUTOTUNED_PIXELS = 8192
+# the backward against cuDNN's dgrad and wgrad, on its heuristic and autotuned
+# alike (PERF.md): K2's input gradient lost at 6,272 output pixels (b6) and
+# below and won from 8,192; its weight gradient lost at 2,048 (b6) and below
+# and won from 4,608
+K2_MIN_DGRAD_PIXELS = 8192
+K2_MIN_WGRAD_PIXELS = 4096
 
 
 class BatchNorm2d(nn.Module):
@@ -168,11 +175,25 @@ def k2_takes(device_type: str, x_dtype: torch.dtype, w_dtype: torch.dtype, tf32:
             and (not autotune or pixels >= K2_MIN_AUTOTUNED_PIXELS))
 
 
+def k2_grads_take(pixels: int) -> tuple[bool, bool]:
+    """(input gradient, weight gradient): which gradients of a conv whose
+    forward ran on K2 (`k2_takes` held) K2's f32 design computes in the
+    backward instead of cuDNN's dgrad and wgrad, from its output pixels (B *
+    H * W): the input gradient from K2_MIN_DGRAD_PIXELS, the weight gradient
+    from K2_MIN_WGRAD_PIXELS. cuDNN ran the same kernels at these shapes
+    whether it autotuned or not, so its autotune flag decides nothing here."""
+    return pixels >= K2_MIN_DGRAD_PIXELS, pixels >= K2_MIN_WGRAD_PIXELS
+
+
 class _DilatedConvK2(torch.autograd.Function):
     """Forward on K2 (kernels/conv_cuda.py:conv3x3_dilated_nchw; its plain
-    twin on the CPU); backward through aten's convolution_backward with the
-    conv's own geometry, as F.conv2d's autograd runs it (cuDNN's dgrad and
-    wgrad on the card)."""
+    twin on the CPU). Backward: each gradient `k2_grads_take` gives to K2's
+    design on it (conv3x3_dilated_dgrad, conv3x3_dilated_wgrad), the others
+    through aten's convolution_backward with the conv's own geometry, as
+    F.conv2d's autograd runs it (cuDNN's dgrad and wgrad on the card). The
+    backward counts each gradient asked for as "conv.dil4_bwd_grads" and
+    each K2 computed as "conv.dil4_bwd_k2", and runs K2's under the span
+    `conv.dilated_bwd`."""
 
     @staticmethod
     def forward(ctx, x, w, dilation: int):
@@ -189,9 +210,24 @@ class _DilatedConvK2(torch.autograd.Function):
     def backward(ctx, grad):
         x, w = ctx.saved_tensors
         d = ctx.dilation
-        gx, gw, _ = torch.ops.aten.convolution_backward(
-            grad, x, w, None, [1, 1], [d, d], [d, d], False, [0, 0], 1,
-            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        want_x, want_w = ctx.needs_input_grad[:2]
+        take_x, take_w = k2_grads_take(x.shape[0] * x.shape[2] * x.shape[3])
+        k2_x, k2_w = want_x and take_x, want_w and take_w
+        cudnn_x, cudnn_w = want_x and not take_x, want_w and not take_w
+        count("conv.dil4_bwd_grads", want_x + want_w)
+        count("conv.dil4_bwd_k2", k2_x + k2_w)
+        gx = gw = None
+        if k2_x or k2_w:
+            with span("conv.dilated_bwd"):
+                if k2_x:
+                    gx = conv3x3_dilated_dgrad(grad, w, d)
+                if k2_w:
+                    gw = conv3x3_dilated_wgrad(x, grad, d)
+        if cudnn_x or cudnn_w:
+            cx, cw, _ = torch.ops.aten.convolution_backward(
+                grad, x, w, None, [1, 1], [d, d], [d, d], False, [0, 0], 1,
+                [cudnn_x, cudnn_w, False])
+            gx, gw = (cx if cudnn_x else gx), (cw if cudnn_w else gw)
         return gx, gw, None
 
 
